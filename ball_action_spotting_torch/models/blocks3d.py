@@ -1,0 +1,93 @@
+"""3D temporal-fusion blocks and GeM pooling (port of the JAX package's
+``models/blocks3d.py``). Layout is channels-last (N, T, H, W, C) as in JAX:
+the pointwise convs are matmuls over the last axis, and the depthwise conv
+and GeM take channels-last input, which is what their kernels read
+contiguously. BN here uses torch defaults (eps 1e-5), unlike the encoder's
+TF-ported 1e-3."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ball_action_spotting_torch.models.effnetv2 import BatchNormAct, PointwiseConv
+from ball_action_spotting_torch.ops.dwconv3d import dwconv3d, dwconv3d_grouped_conv
+from ball_action_spotting_torch.ops.gem import gem_pool
+
+
+class DepthwiseConv3d(nn.Module):
+    """3×3×3 depthwise SAME conv, weight (C, 1, 3, 3, 3). The default path
+    is ``F.conv3d(groups=C)``, the counterpart of the JAX package's lax
+    grouped conv; ``use_kernel=True`` routes inference through
+    ``ops/dwconv3d.py`` (the hand-written kernel on a CUDA tensor)."""
+
+    def __init__(self, features: int, use_kernel: bool = False):
+        super().__init__()
+        self.use_kernel = use_kernel
+        self.weight = nn.Parameter(torch.empty(features, 1, 3, 3, 3))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kernel = self.weight.to(x.dtype).permute(2, 3, 4, 1, 0)  # (3, 3, 3, 1, C)
+        if self.use_kernel and not self.training:
+            return dwconv3d(x, kernel)
+        return dwconv3d_grouped_conv(x, kernel)
+
+
+class SqueezeExcite3d(nn.Module):
+    """SE over (T, H, W); reduction = channels // reduce_ratio of the
+    expanded width it is given."""
+
+    def __init__(self, channels: int, reduce_ratio: int = 8, act: Callable = F.silu):
+        super().__init__()
+        self.act = act
+        rd = channels // reduce_ratio
+        self.conv_reduce = PointwiseConv(channels, rd, ndim=3, bias=True)
+        self.conv_expand = PointwiseConv(rd, channels, ndim=3, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        se = x.mean(dim=(1, 2, 3), keepdim=True)
+        se = self.conv_expand(self.act(self.conv_reduce(se)))
+        return x * torch.sigmoid(se)
+
+
+class InvertedResidual3d(nn.Module):
+    """MBConv-style 3D block: 1×1×1 expand → 3×3×3 depthwise → SE →
+    1×1×1 project, residual. Input/output: (B, T, H, W, C)."""
+
+    bn_eps = 1e-5  # torch BatchNorm3d default; read by models/fold_bn.py
+
+    def __init__(self, features: int, expansion_ratio: int = 6,
+                 se_reduce_ratio: int = 24, act: Callable = F.silu,
+                 bn_folded: bool = False, dw_use_kernel: bool = False):
+        super().__init__()
+        mid = features * expansion_ratio
+        eps = self.bn_eps
+        self.conv_pw = PointwiseConv(features, mid, ndim=3)
+        self.bn1 = BatchNormAct(mid, act, eps, bn_folded, channels_last=True)
+        self.conv_dw = DepthwiseConv3d(mid, use_kernel=dw_use_kernel)
+        self.bn2 = BatchNormAct(mid, act, eps, bn_folded, channels_last=True)
+        self.se = SqueezeExcite3d(mid, se_reduce_ratio, act)
+        self.conv_pwl = PointwiseConv(mid, features, ndim=3)
+        self.bn3 = BatchNormAct(features, None, eps, bn_folded, channels_last=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn2(self.conv_dw(self.bn1(self.conv_pw(x))))
+        out = self.bn3(self.conv_pwl(self.se(out)))
+        return out + x
+
+
+class GeneralizedMeanPooling(nn.Module):
+    """GeM pooling ``mean(clamp(x, eps)^p)^(1/p)`` over (H, W) with a
+    learnable scalar ``p``: (B, H, W, C) → (B, C) float32. Always through
+    ``ops/gem.py`` (the kernel on a CUDA tensor)."""
+
+    def __init__(self, p_init: float = 3.0, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.p = nn.Parameter(torch.full((1,), p_init))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gem_pool(x, self.p, self.eps)

@@ -1,0 +1,360 @@
+"""EfficientNetV2 2D encoder family (port of the JAX package's
+``models/effnetv2.py``).
+
+The arch table, ``resolve_arch``, ``round_channels`` and the feature taps
+are copies. Modules run NCHW internally, as PyTorch's convolutions prefer
+(the callers hand them channels-last memory, which cuDNN keeps), and
+reproduce the TF-ported weights' conventions: TF "SAME" padding, which puts
+the extra pixel of a stride-2 conv at the bottom/right, and BatchNorm eps
+1e-3. Module and parameter names follow the Flax modules (``conv_stem``,
+``bn1``, ``blocks_{stage}_{rep}``, ``conv_pw``, ``se.conv_reduce`` ...), so
+``convert.py`` maps one state onto the other. Inference only in this slice:
+the space-to-depth stem and the int8 convs of the JAX package are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockDef:
+    kind: str  # "cn" conv | "er" edge/fused | "ir" inverted residual
+    repeats: int
+    kernel: int
+    stride: int
+    expand: int
+    channels: int
+    se_ratio: float = 0.0
+
+
+_V2_BASE = (
+    32,
+    (
+        BlockDef("cn", 1, 3, 1, 1, 16),
+        BlockDef("er", 2, 3, 2, 4, 32),
+        BlockDef("er", 2, 3, 2, 4, 48),
+        BlockDef("ir", 3, 3, 2, 4, 96, 0.25),
+        BlockDef("ir", 5, 3, 1, 6, 112, 0.25),
+        BlockDef("ir", 8, 3, 2, 6, 192, 0.25),
+    ),
+)
+_V2_S = (
+    24,
+    (
+        BlockDef("cn", 2, 3, 1, 1, 24),
+        BlockDef("er", 4, 3, 2, 4, 48),
+        BlockDef("er", 4, 3, 2, 4, 64),
+        BlockDef("ir", 6, 3, 2, 4, 128, 0.25),
+        BlockDef("ir", 9, 3, 1, 6, 160, 0.25),
+        BlockDef("ir", 15, 3, 2, 6, 256, 0.25),
+    ),
+)
+_V2_M = (
+    24,
+    (
+        BlockDef("cn", 3, 3, 1, 1, 24),
+        BlockDef("er", 5, 3, 2, 4, 48),
+        BlockDef("er", 5, 3, 2, 4, 80),
+        BlockDef("ir", 7, 3, 2, 4, 160, 0.25),
+        BlockDef("ir", 14, 3, 1, 6, 176, 0.25),
+        BlockDef("ir", 18, 3, 2, 6, 304, 0.25),
+        BlockDef("ir", 5, 3, 1, 6, 512, 0.25),
+    ),
+)
+_V2_L = (
+    32,
+    (
+        BlockDef("cn", 4, 3, 1, 1, 32),
+        BlockDef("er", 7, 3, 2, 4, 64),
+        BlockDef("er", 7, 3, 2, 4, 96),
+        BlockDef("ir", 10, 3, 2, 4, 192, 0.25),
+        BlockDef("ir", 19, 3, 1, 6, 224, 0.25),
+        BlockDef("ir", 25, 3, 2, 6, 384, 0.25),
+        BlockDef("ir", 7, 3, 1, 6, 640, 0.25),
+    ),
+)
+# minimal stand-in arch (same stage kinds and 5 feature taps as b0)
+_V2_TINY = (
+    8,
+    (
+        BlockDef("cn", 1, 3, 1, 1, 8),
+        BlockDef("er", 1, 3, 2, 2, 8),
+        BlockDef("er", 1, 3, 2, 2, 16),
+        BlockDef("ir", 1, 3, 2, 2, 16, 0.25),
+        BlockDef("ir", 1, 3, 2, 2, 24, 0.25),
+    ),
+)
+
+# name -> (stem, stages, channel_multiplier, depth_multiplier)
+EFFNETV2_ARCHS: dict[str, tuple[int, tuple[BlockDef, ...], float, float]] = {
+    "efficientnetv2_tiny": (*_V2_TINY, 1.0, 1.0),
+    "efficientnetv2_b0": (*_V2_BASE, 1.0, 1.0),
+    "efficientnetv2_b1": (*_V2_BASE, 1.0, 1.1),
+    "efficientnetv2_b2": (*_V2_BASE, 1.1, 1.2),
+    "efficientnetv2_b3": (*_V2_BASE, 1.2, 1.4),
+    "efficientnetv2_s": (*_V2_S, 1.0, 1.0),
+    "efficientnetv2_m": (*_V2_M, 1.0, 1.0),
+    "efficientnetv2_l": (*_V2_L, 1.0, 1.0),
+}
+
+
+def round_channels(channels: float, multiplier: float = 1.0, divisor: int = 8) -> int:
+    """timm-compatible channel rounding (make_divisible with 0.9 round limit)."""
+    channels *= multiplier
+    new = max(divisor, int(channels + divisor / 2) // divisor * divisor)
+    if new < 0.9 * channels:
+        new += divisor
+    return int(new)
+
+
+def round_repeats(repeats: int, multiplier: float) -> int:
+    return int(math.ceil(repeats * multiplier))
+
+
+def resolve_arch(name: str) -> tuple[int, list[BlockDef]]:
+    """Apply width/depth multipliers → concrete (stem_channels, stages)."""
+    key = name.replace("tf_", "").split(".")[0]
+    if key not in EFFNETV2_ARCHS:
+        raise KeyError(f"Unknown EfficientNetV2 arch: {name!r}")
+    stem, stages, cm, dm = EFFNETV2_ARCHS[key]
+    stem = round_channels(stem, cm)
+    resolved = [
+        dataclasses.replace(
+            b,
+            channels=round_channels(b.channels, cm),
+            repeats=round_repeats(b.repeats, dm),
+        )
+        for b in stages
+    ]
+    return stem, resolved
+
+
+def same_pad(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """TF "SAME" padding (before, after) of one spatial axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv2dSame(nn.Module):
+    """Bias-free 2D conv with TF "SAME" padding; weight OIHW."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 groups: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kernel, kernel))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.weight.shape[-1]
+        top, bottom = same_pad(x.shape[-2], k, self.stride)
+        left, right = same_pad(x.shape[-1], k, self.stride)
+        if (top, left) == (bottom, right):
+            padding = (top, left)
+        else:  # asymmetric: F.conv2d pads symmetrically, so pad explicitly
+            x = F.pad(x, (left, right, top, bottom))
+            padding = (0, 0)
+        return F.conv2d(x, self.weight.to(x.dtype), None, self.stride, padding,
+                        groups=self.groups)
+
+
+class PointwiseConv(nn.Module):
+    """1×1 (or 1×1×1) conv on channels-last input as a matmul over the last
+    axis; weight (out, in, 1, 1[, 1]) as the conv's state layout."""
+
+    def __init__(self, in_ch: int, out_ch: int, ndim: int = 2, bias: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty((out_ch, in_ch) + (1,) * ndim))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.flatten(1).to(x.dtype), bias)
+
+
+class BatchNormAct(nn.Module):
+    """Inference BN (+ optional activation) over the channel axis.
+
+    The normalize runs in float32 as in Flax — ``(x - mean)·(rsqrt(var +
+    eps)·scale) + bias`` — and the result is cast back to the input dtype
+    before the activation. ``folded=True`` is the BN-folded form (see
+    ``models/fold_bn.py``): the scale lives in the preceding conv and only a
+    per-channel ``bias`` is left. ``channels_last`` says whether channels
+    are the last axis (else axis 1, NCHW)."""
+
+    def __init__(self, channels: int, act: Optional[Callable] = F.silu,
+                 eps: float = 1e-3, folded: bool = False, channels_last: bool = False):
+        super().__init__()
+        self.act = act
+        self.eps = eps
+        self.folded = folded
+        self.channels_last = channels_last
+        self.bias = nn.Parameter(torch.zeros(channels))
+        if not folded:
+            self.weight = nn.Parameter(torch.ones(channels))
+            self.register_buffer("running_mean", torch.zeros(channels))
+            self.register_buffer("running_var", torch.ones(channels))
+
+    def _shape(self, x: torch.Tensor) -> tuple[int, ...]:
+        if self.channels_last:
+            return (-1,)
+        return (-1,) + (1,) * (x.dim() - 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "BatchNormAct is inference-only in the port (call .eval())")
+        shape = self._shape(x)
+        if self.folded:
+            x = x + self.bias.to(x.dtype).view(shape)
+        else:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+            x = (y + self.bias.view(shape)).to(x.dtype)
+        return x if self.act is None else self.act(x)
+
+
+class SqueezeExcite2d(nn.Module):
+    """SE over spatial dims; ``rd_channels`` derives from the *block input*
+    channels (EfficientNet convention), not the expanded width."""
+
+    def __init__(self, channels: int, rd_channels: int, act: Callable = F.silu):
+        super().__init__()
+        self.act = act
+        self.conv_reduce = nn.Conv2d(channels, rd_channels, 1, bias=True)
+        self.conv_expand = nn.Conv2d(rd_channels, channels, 1, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        se = x.mean(dim=(2, 3), keepdim=True)
+        dt = x.dtype
+        se = F.conv2d(se, self.conv_reduce.weight.to(dt), self.conv_reduce.bias.to(dt))
+        se = self.act(se)
+        se = F.conv2d(se, self.conv_expand.weight.to(dt), self.conv_expand.bias.to(dt))
+        return x * torch.sigmoid(se)
+
+
+class ConvBnAct(nn.Module):
+    def __init__(self, in_ch: int, channels: int, kernel: int, stride: int,
+                 act: Callable = F.silu, bn_eps: float = 1e-3, bn_folded: bool = False):
+        super().__init__()
+        self.has_skip = stride == 1 and in_ch == channels
+        self.conv = Conv2dSame(in_ch, channels, kernel, stride)
+        self.bn1 = BatchNormAct(channels, act, bn_eps, bn_folded)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn1(self.conv(x))
+        return out + x if self.has_skip else out
+
+
+class EdgeResidual(nn.Module):
+    """Fused-MBConv: kxk expansion conv → BN/act → 1x1 project → BN."""
+
+    def __init__(self, in_ch: int, channels: int, kernel: int, stride: int,
+                 expand: int, act: Callable = F.silu, bn_eps: float = 1e-3,
+                 bn_folded: bool = False):
+        super().__init__()
+        mid = in_ch * expand
+        self.has_skip = stride == 1 and in_ch == channels
+        self.conv_exp = Conv2dSame(in_ch, mid, kernel, stride)
+        self.bn1 = BatchNormAct(mid, act, bn_eps, bn_folded)
+        self.conv_pwl = Conv2dSame(mid, channels, 1)
+        self.bn2 = BatchNormAct(channels, None, bn_eps, bn_folded)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn2(self.conv_pwl(self.bn1(self.conv_exp(x))))
+        return out + x if self.has_skip else out
+
+
+class InvertedResidual2d(nn.Module):
+    """MBConv: 1x1 expand → dw kxk → SE → 1x1 project, all BN'd."""
+
+    def __init__(self, in_ch: int, channels: int, kernel: int, stride: int,
+                 expand: int, se_ratio: float, act: Callable = F.silu,
+                 bn_eps: float = 1e-3, bn_folded: bool = False):
+        super().__init__()
+        mid = in_ch * expand
+        self.has_skip = stride == 1 and in_ch == channels
+        self.conv_pw = Conv2dSame(in_ch, mid, 1)
+        self.bn1 = BatchNormAct(mid, act, bn_eps, bn_folded)
+        self.conv_dw = Conv2dSame(mid, mid, kernel, stride, groups=mid)
+        self.bn2 = BatchNormAct(mid, act, bn_eps, bn_folded)
+        self.se = (SqueezeExcite2d(mid, max(1, int(in_ch * se_ratio)), act)
+                   if se_ratio > 0 else None)
+        self.conv_pwl = Conv2dSame(mid, channels, 1)
+        self.bn3 = BatchNormAct(channels, None, bn_eps, bn_folded)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn2(self.conv_dw(self.bn1(self.conv_pw(x))))
+        if self.se is not None:
+            out = self.se(out)
+        out = self.bn3(self.conv_pwl(out))
+        return out + x if self.has_skip else out
+
+
+class EfficientNetV2Features(nn.Module):
+    """Features-only EfficientNetV2 trunk: (B, C_in, H, W) → the activation
+    at reduction boundary ``out_index`` (0..4 ↔ strides 2..32). Stages past
+    the tap are never built."""
+
+    bn_eps = 1e-3  # TF-ported weights; read by models/fold_bn.py
+
+    def __init__(self, model_name: str = "efficientnetv2_b0", out_index: int = 4,
+                 in_chans: int = 3, act: Callable = F.silu, bn_folded: bool = False):
+        super().__init__()
+        stem_ch, stages = resolve_arch(model_name)
+        last_stage = self._tap_stages(stages)[out_index]
+        eps = self.bn_eps
+        self.conv_stem = Conv2dSame(in_chans, stem_ch, 3, 2)
+        self.bn1 = BatchNormAct(stem_ch, act, eps, bn_folded)
+        self.block_names: list[str] = []
+        in_ch = stem_ch
+        for stage_idx, stage in enumerate(stages[: last_stage + 1]):
+            for rep in range(stage.repeats):
+                stride = stage.stride if rep == 0 else 1
+                common = dict(in_ch=in_ch, channels=stage.channels, kernel=stage.kernel,
+                              stride=stride, act=act, bn_eps=eps, bn_folded=bn_folded)
+                if stage.kind == "cn":
+                    block = ConvBnAct(**common)
+                elif stage.kind == "er":
+                    block = EdgeResidual(expand=stage.expand, **common)
+                elif stage.kind == "ir":
+                    block = InvertedResidual2d(expand=stage.expand,
+                                               se_ratio=stage.se_ratio, **common)
+                else:
+                    raise ValueError(stage.kind)
+                name = f"blocks_{stage_idx}_{rep}"
+                self.add_module(name, block)
+                self.block_names.append(name)
+                in_ch = stage.channels
+
+    @staticmethod
+    def feature_channels(model_name: str, out_index: int) -> int:
+        """Channel count at a feature tap."""
+        _, stages = resolve_arch(model_name)
+        taps = EfficientNetV2Features._tap_stages(stages)
+        return stages[taps[out_index]].channels
+
+    @staticmethod
+    def _tap_stages(stages: Sequence[BlockDef]) -> list[int]:
+        """Map feature index → index of the last stage at that reduction."""
+        taps: list[int] = []
+        for i, stage in enumerate(stages):
+            if stage.stride > 1 and i > 0:
+                taps.append(i - 1)
+        taps.append(len(stages) - 1)
+        return taps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn1(self.conv_stem(x))
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return x

@@ -1,0 +1,24 @@
+"""Workspace path configuration (copy of the JAX package's ``paths.py``).
+
+The workspace root comes from ``BAS_TPU_WORKDIR`` so both packages read and
+write the same experiment and prediction layout.
+"""
+
+import os
+from pathlib import Path
+
+
+def work_dir() -> Path:
+    return Path(os.environ.get("BAS_TPU_WORKDIR", os.getcwd()))
+
+
+def data_dir() -> Path:
+    return work_dir() / "data"
+
+
+def configs_dir() -> Path:
+    return Path(os.environ.get("BAS_TPU_CONFIGS_DIR", work_dir() / "configs"))
+
+
+def soccernet_dir() -> Path:
+    return data_dir() / "soccernet"

@@ -1,0 +1,57 @@
+"""Ball-action prediction CLI: per-fold CV or challenge whole-video
+inference with the port's chunked engine, hflip TTA on.
+
+    python -m ball_action_spotting_torch.predict --experiment NAME \\
+        [--folds 0,1] [--challenge] [--use_saved_predictions] [--device cuda]
+
+Reads the best ``.ckpt`` of ``data/ball_action/experiments/NAME/fold_K``
+(the files the JAX training CLI writes) and writes the raw npz and
+``results_spotting.json`` under ``data/ball_action/predictions/NAME/{cv,
+challenge}/fold_K``, as the JAX predict CLI does.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from ball_action_spotting_torch.domains import ball
+from ball_action_spotting_torch.predict.pipeline import predict_games
+from ball_action_spotting_torch.train.checkpoint import get_best_checkpoint_path
+
+RESOLUTION = "720p"
+TTA = True
+
+
+def parse_arguments(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--experiment", required=True, type=str)
+    parser.add_argument("--folds", default="all", type=str)
+    parser.add_argument("--challenge", action="store_true")
+    parser.add_argument("--use_saved_predictions", action="store_true")
+    parser.add_argument("--device", default="cuda", type=str)
+    return parser.parse_args(argv)
+
+
+def predict_fold(args, fold: int, domain) -> None:
+    experiment_dir = domain.experiments_dir / args.experiment / f"fold_{fold}"
+    model_path = get_best_checkpoint_path(experiment_dir)
+    if model_path is None and not args.use_saved_predictions:
+        raise FileNotFoundError(f"No checkpoint in {experiment_dir}")
+    print(f"Predict fold {fold}, model {model_path}")
+    split = "challenge" if args.challenge else "cv"
+    games = ball.challenge_games if args.challenge else ball.fold2games[fold]
+    prediction_dir = domain.predictions_dir / args.experiment / split / f"fold_{fold}"
+    predict_games(model_path, games, domain, prediction_dir, tta=TTA,
+                  use_saved=args.use_saved_predictions, resolution=RESOLUTION,
+                  device=args.device)
+
+
+def main(argv=None) -> None:
+    args = parse_arguments(argv)
+    folds = ball.folds if args.folds == "all" else [int(f) for f in args.folds.split(",")]
+    for fold in folds:
+        predict_fold(args, fold, ball.DOMAIN)
+
+
+if __name__ == "__main__":
+    main()
