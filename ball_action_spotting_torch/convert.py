@@ -1,4 +1,5 @@
-"""Weight bridge: JAX/Flax variable trees → the port model's state_dict.
+"""Weight bridge between JAX/Flax variable trees and the port model's
+state_dict, both ways.
 
 The inverse of the JAX package's ``models/torch_import.py`` layout rules,
 onto the port's own module names (which are the Flax names):
@@ -11,6 +12,8 @@ onto the port's own module names (which are the Flax names):
 
 Input trees hold numpy arrays (``train/checkpoint.py`` reads them from a
 JAX ``.ckpt``; tests pass ``jax.tree.map(np.asarray, variables)``).
+``state_dict_to_flax_tree`` is the way back, for the checkpoints the port
+writes: the JAX package's ``load_checkpoint`` reads them.
 """
 
 from __future__ import annotations
@@ -70,3 +73,41 @@ def jax_variables_to_state_dict(variables_np: Mapping, nn_kwargs: Mapping) -> di
     model = build_model("multidim_stacker", bn_folded=folded, **dict(nn_kwargs))
     model.load_state_dict(state, strict=True)
     return state
+
+
+_INVERSE_PERM = {ndim: tuple(int(i) for i in np.argsort(perm))
+                 for ndim, perm in _KERNEL_PERM.items()}
+_BN_LEAVES = {
+    "weight": ("params", "scale"),
+    "bias": ("params", "bias"),
+    "running_mean": ("batch_stats", "mean"),
+    "running_var": ("batch_stats", "var"),
+}
+
+
+def state_dict_to_flax_tree(state: Mapping[str, torch.Tensor], model) -> dict:
+    """A port model's state_dict (or any subset of it, such as the
+    parameters' gradients) → the {"params"[, "batch_stats"]} numpy float32
+    tree of the Flax module. ``model`` tells which modules are BN: an
+    unfolded BN's leaves go under its ``BatchNorm_0`` scope."""
+    from ball_action_spotting_torch.models.effnetv2 import BatchNormAct
+
+    bn = {name: m.folded for name, m in model.named_modules() if isinstance(m, BatchNormAct)}
+    tree: dict = {}
+    for name, tensor in state.items():
+        prefix, _, leaf = name.rpartition(".")
+        path = prefix.split(".") if prefix else []
+        arr = tensor.detach().cpu().float().numpy()
+        if prefix in bn and not bn[prefix]:
+            collection, key = _BN_LEAVES[leaf]
+            path.append("BatchNorm_0")
+        elif leaf == "weight":
+            collection, key = "params", "kernel"
+            arr = arr.transpose(_INVERSE_PERM[arr.ndim])
+        else:  # conv/dense and folded-BN biases, GeM's p
+            collection, key = "params", leaf
+        node = tree.setdefault(collection, {})
+        for part in path:
+            node = node.setdefault(part, {})
+        node[key] = np.ascontiguousarray(arr)
+    return tree

@@ -1,7 +1,12 @@
-"""Temporal stack-window index math (copy of the JAX package's
-``core/indexes.py``, the part inference needs)."""
+"""Temporal stack-window index math and index jitter (copy of the JAX
+package's ``core/indexes.py``). Randomness flows through an explicit
+``numpy.random.Generator``, so sampling is reproducible."""
 
 from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
 
 
 class StackIndexesGenerator:
@@ -35,3 +40,34 @@ class StackIndexesGenerator:
         if index > hi:
             return hi
         return index
+
+
+class FrameIndexShaker:
+    """Per-frame random index jitter (temporal augmentation).
+
+    With probability ``prob``, each index in the stack is independently
+    shifted by a value drawn from ``shifts`` with probabilities ``weights``
+    (reference ``src/indexes.py:35-52``).
+    """
+
+    def __init__(
+        self,
+        shifts: Sequence[int],
+        weights: Optional[Sequence[float]] = None,
+        prob: float = 1.0,
+    ):
+        self.shifts = list(shifts)
+        self.weights = list(weights) if weights is not None else None
+        self.prob = prob
+
+    @property
+    def max_shift(self) -> int:
+        return max(abs(s) for s in self.shifts)
+
+    def __call__(
+        self, frame_indexes: Sequence[int], rng: np.random.Generator
+    ) -> list[int]:
+        if rng.random() >= self.prob:
+            return list(frame_indexes)
+        shifts = rng.choice(self.shifts, size=len(frame_indexes), p=self.weights)
+        return [int(i + s) for i, s in zip(frame_indexes, shifts)]

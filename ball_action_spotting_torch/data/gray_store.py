@@ -6,6 +6,7 @@ read here through a numpy memmap."""
 from __future__ import annotations
 
 from pathlib import Path
+from typing import Sequence
 
 import numpy as np
 
@@ -37,6 +38,19 @@ class GrayStoreSource(FrameSource):
         if not 0 <= index < self.num_frames:
             raise IndexError(f"frame {index} outside [0, {self.num_frames})")
         return np.array(self._mmap[index])
+
+    def fetch_frames(self, indexes: Sequence[int]) -> np.ndarray:
+        # random access is free: gather exactly the strided indexes
+        out = np.empty((len(indexes), self.height, self.width), np.uint8)
+        self.fetch_frames_into(indexes, out)
+        return out
+
+    def fetch_frames_into(self, indexes: Sequence[int], out: np.ndarray) -> None:
+        """Gather the frames at ``indexes`` (clamped to the video) into
+        ``out``."""
+        clamped = np.clip(np.asarray(indexes, dtype=np.int64), 0, self.num_frames - 1)
+        for i, index in enumerate(clamped):
+            out[i] = self._mmap[index]
 
     def close(self) -> None:
         self._mmap = None

@@ -1,10 +1,12 @@
 """Host-side frame sources (copy of the JAX package's ``data/video.py``,
-the part inference needs).
+without the buffering ``SequentialWindowSource``).
 
 ``FrameSource`` is a sequential-or-seek grayscale reader with a zero-frame
 fallback on decode errors. ``SyntheticSource`` renders deterministic frames
 for tests and benchmarks, ``OpenCVSource`` decodes on the CPU, and
-``open_source`` picks one for a ``video_data`` dict.
+``open_source`` picks one for a ``video_data`` dict;
+``make_synthetic_video_data`` builds ``video_data`` dicts of synthetic
+videos for training runs without the dataset.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from __future__ import annotations
 import abc
 import logging
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -48,8 +50,31 @@ class FrameSource(abc.ABC):
             logger.exception("Fetch frame %s error, video '%s'", index, self.video_path)
             return np.zeros((self.height, self.width), dtype=np.uint8)
 
+    def fetch_frames_into(self, indexes: Sequence[int], out: np.ndarray) -> None:
+        """Fetch a strided window directly into ``out`` ((len(indexes), h, w)
+        view of a pooled batch buffer)."""
+        out[:] = self.fetch_frames(indexes)
+
+    def fetch_frames(self, indexes: Sequence[int]) -> np.ndarray:
+        """Fetch a strided window: decode [min, max] sequentially, keep the
+        requested indexes. Returns (len(indexes), H, W) uint8."""
+        start, end = min(indexes), max(indexes)
+        wanted = {start: self.fetch_frame(start)}
+        need = set(indexes)
+        for idx in range(start + 1, end + 1):
+            frame = self.fetch_frame()
+            if idx in need:
+                wanted[idx] = frame
+        return np.stack([wanted[i] for i in indexes], axis=0)
+
     def close(self) -> None:
         pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 class OpenCVSource(FrameSource):
@@ -132,6 +157,36 @@ class SyntheticSource(FrameSource):
         if index >= self.num_frames:
             raise RuntimeError("eof")
         return self._frame(index)
+
+
+def make_synthetic_video_data(
+    num_videos: int = 2,
+    num_frames: int = 400,
+    classes: Sequence[str] = ("PASS", "DRIVE"),
+    every: int = 40,
+    height: int = 64,
+    width: int = 96,
+) -> list[dict]:
+    """video_data dicts of synthetic videos (``synthetic://<v>``, read by
+    ``SyntheticSource``): class i events on frames every·k + 10·i."""
+    videos = []
+    for v in range(num_videos):
+        frame_index2action = {}
+        for k in range(1, num_frames // every):
+            frame_index2action[k * every] = classes[k % len(classes)]
+        videos.append(dict(
+            video_path=f"synthetic://{v}",
+            game=f"synthetic_game_{v}",
+            half=1,
+            frame_count=num_frames,
+            fps=25.0,
+            width=width,
+            height=height,
+            frame_index2action=frame_index2action,
+            classes=list(classes),
+            synthetic_seed=v,
+        ))
+    return videos
 
 
 def open_source(video_data: dict) -> FrameSource:

@@ -60,6 +60,28 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> torch.nn
     return model
 
 
+def init_train_weights(model: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
+    """Seeded initial weights for training from scratch, in place, with the
+    Flax initializers the JAX package's ``model.init`` uses: conv and dense
+    kernels LeCun-normal (a normal truncated at ±2σ, σ = 1/√fan_in
+    / 0.8796), BN scale 1 and bias 0, running mean 0 and variance 1, all
+    other biases 0, GeM p = 3."""
+    with torch.no_grad():
+        for name, tensor in list(model.named_parameters()) + list(model.named_buffers()):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "weight" and tensor.dim() > 1:
+                std = 1.0 / math.sqrt(tensor[0].numel()) / 0.87962566103423978
+                torch.nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std, 2.0 * std,
+                                            generator=generator)
+            elif leaf in ("weight", "running_var"):  # BN scale and variance
+                tensor.fill_(1.0)
+            elif leaf == "p":
+                tensor.fill_(3.0)
+            else:  # biases and running means
+                tensor.zero_()
+    return model
+
+
 __all__ = [
     "EFFNETV2_ARCHS",
     "EfficientNetV2Features",
@@ -69,5 +91,6 @@ __all__ = [
     "MultiDimStacker",
     "SqueezeExcite3d",
     "build_model",
+    "init_train_weights",
     "init_weights",
 ]

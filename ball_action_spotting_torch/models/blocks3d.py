@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ball_action_spotting_torch.models.effnetv2 import BatchNormAct, PointwiseConv
+from ball_action_spotting_torch.models.effnetv2 import BatchNormAct, DropPath, PointwiseConv
 from ball_action_spotting_torch.ops.dwconv3d import dwconv3d, dwconv3d_grouped_conv
 from ball_action_spotting_torch.ops.gem import gem_pool
 
@@ -55,13 +55,15 @@ class SqueezeExcite3d(nn.Module):
 
 class InvertedResidual3d(nn.Module):
     """MBConv-style 3D block: 1×1×1 expand → 3×3×3 depthwise → SE →
-    1×1×1 project, residual. Input/output: (B, T, H, W, C)."""
+    1×1×1 project, residual (its branch dropped at ``drop_path_rate`` in
+    training). Input/output: (B, T, H, W, C)."""
 
     bn_eps = 1e-5  # torch BatchNorm3d default; read by models/fold_bn.py
 
     def __init__(self, features: int, expansion_ratio: int = 6,
                  se_reduce_ratio: int = 24, act: Callable = F.silu,
-                 bn_folded: bool = False, dw_use_kernel: bool = False):
+                 bn_folded: bool = False, dw_use_kernel: bool = False,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         mid = features * expansion_ratio
         eps = self.bn_eps
@@ -72,11 +74,12 @@ class InvertedResidual3d(nn.Module):
         self.se = SqueezeExcite3d(mid, se_reduce_ratio, act)
         self.conv_pwl = PointwiseConv(mid, features, ndim=3)
         self.bn3 = BatchNormAct(features, None, eps, bn_folded, channels_last=True)
+        self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.bn2(self.conv_dw(self.bn1(self.conv_pw(x))))
         out = self.bn3(self.conv_pwl(self.se(out)))
-        return out + x
+        return self.drop_path(out) + x
 
 
 class GeneralizedMeanPooling(nn.Module):

@@ -8,9 +8,9 @@ reproduce the TF-ported weights' conventions: TF "SAME" padding, which puts
 the extra pixel of a stride-2 conv at the bottom/right, and BatchNorm eps
 1e-3. Module and parameter names follow the Flax modules (``conv_stem``,
 ``bn1``, ``blocks_{stage}_{rep}``, ``conv_pw``, ``se.conv_reduce`` ...), so
-``convert.py`` maps one state onto the other. Inference only in this slice:
-the space-to-depth stem and the int8 convs of the JAX package are not
-ported yet.
+``convert.py`` maps one state onto the other. In training mode BN uses
+batch statistics and the residual blocks drop paths. The space-to-depth
+stem and the int8 convs of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -182,14 +182,22 @@ class PointwiseConv(nn.Module):
 
 
 class BatchNormAct(nn.Module):
-    """Inference BN (+ optional activation) over the channel axis.
+    """BN (+ optional activation) over the channel axis, with Flax's
+    semantics.
 
-    The normalize runs in float32 as in Flax — ``(x - mean)·(rsqrt(var +
-    eps)·scale) + bias`` — and the result is cast back to the input dtype
-    before the activation. ``folded=True`` is the BN-folded form (see
-    ``models/fold_bn.py``): the scale lives in the preceding conv and only a
-    per-channel ``bias`` is left. ``channels_last`` says whether channels
-    are the last axis (else axis 1, NCHW)."""
+    In eval mode the normalize runs in float32 with the running statistics —
+    ``(x - mean)·(rsqrt(var + eps)·scale) + bias`` — and the result is cast
+    back to the input dtype before the activation. In training mode the
+    statistics are the batch's, in float32 over every axis but the channel
+    axis, with Flax's fast biased variance ``E[x²] − E[x]²`` clipped at 0,
+    and the running statistics move as ``0.9·running + 0.1·batch`` (Flax
+    momentum 0.9; ``nn.BatchNorm`` would use the unbiased variance there).
+    ``folded=True`` is the BN-folded form (see ``models/fold_bn.py``): the
+    scale lives in the preceding conv and only a per-channel ``bias`` is
+    left; it is inference-only. ``channels_last`` says whether channels are
+    the last axis (else axis 1, NCHW)."""
+
+    momentum = 0.9
 
     def __init__(self, channels: int, act: Optional[Callable] = F.silu,
                  eps: float = 1e-3, folded: bool = False, channels_last: bool = False):
@@ -209,18 +217,86 @@ class BatchNormAct(nn.Module):
             return (-1,)
         return (-1,) + (1,) * (x.dim() - 2)
 
+    def _batch_stats(self, xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        dims = (tuple(range(xf.dim() - 1)) if self.channels_last
+                else (0,) + tuple(range(2, xf.dim())))
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return mean, var
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNormAct is inference-only in the port (call .eval())")
         shape = self._shape(x)
         if self.folded:
+            if self.training:
+                raise ValueError("a folded BatchNormAct is inference-only")
             x = x + self.bias.to(x.dtype).view(shape)
         else:
-            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-            y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+            xf = x.float()
+            if self.training:
+                mean, var = self._batch_stats(xf)
+            else:
+                mean, var = self.running_mean, self.running_var
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            y = (xf - mean.view(shape)) * mul.view(shape)
             x = (y + self.bias.view(shape)).to(x.dtype)
         return x if self.act is None else self.act(x)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth over the batch axis in training mode: each sample's
+    residual branch is kept with probability 1 - rate and scaled by
+    1/(1 - rate). Its mask is drawn from ``generator``, which the train step
+    sets (``set_dropout_generator``)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = random_keep_mask(self.generator, shape, keep, x.device)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout in training mode (Flax ``nn.Dropout``), with its
+    mask drawn from ``generator``."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = random_keep_mask(self.generator, x.shape, keep, x.device)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def random_keep_mask(generator: Optional[torch.Generator], shape, keep: float,
+                     device: torch.device) -> torch.Tensor:
+    if generator is None:
+        raise ValueError("dropout in training mode needs a generator: call "
+                         "set_dropout_generator(model, generator) first")
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Give every ``DropPath`` and ``Dropout`` of ``model`` the generator of
+    its masks."""
+    for module in model.modules():
+        if isinstance(module, (DropPath, Dropout)):
+            module.generator = generator
 
 
 class SqueezeExcite2d(nn.Module):
@@ -244,15 +320,17 @@ class SqueezeExcite2d(nn.Module):
 
 class ConvBnAct(nn.Module):
     def __init__(self, in_ch: int, channels: int, kernel: int, stride: int,
-                 act: Callable = F.silu, bn_eps: float = 1e-3, bn_folded: bool = False):
+                 act: Callable = F.silu, bn_eps: float = 1e-3, bn_folded: bool = False,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.has_skip = stride == 1 and in_ch == channels
         self.conv = Conv2dSame(in_ch, channels, kernel, stride)
         self.bn1 = BatchNormAct(channels, act, bn_eps, bn_folded)
+        self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.bn1(self.conv(x))
-        return out + x if self.has_skip else out
+        return self.drop_path(out) + x if self.has_skip else out
 
 
 class EdgeResidual(nn.Module):
@@ -260,7 +338,7 @@ class EdgeResidual(nn.Module):
 
     def __init__(self, in_ch: int, channels: int, kernel: int, stride: int,
                  expand: int, act: Callable = F.silu, bn_eps: float = 1e-3,
-                 bn_folded: bool = False):
+                 bn_folded: bool = False, drop_path_rate: float = 0.0):
         super().__init__()
         mid = in_ch * expand
         self.has_skip = stride == 1 and in_ch == channels
@@ -268,10 +346,11 @@ class EdgeResidual(nn.Module):
         self.bn1 = BatchNormAct(mid, act, bn_eps, bn_folded)
         self.conv_pwl = Conv2dSame(mid, channels, 1)
         self.bn2 = BatchNormAct(channels, None, bn_eps, bn_folded)
+        self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.bn2(self.conv_pwl(self.bn1(self.conv_exp(x))))
-        return out + x if self.has_skip else out
+        return self.drop_path(out) + x if self.has_skip else out
 
 
 class InvertedResidual2d(nn.Module):
@@ -279,7 +358,7 @@ class InvertedResidual2d(nn.Module):
 
     def __init__(self, in_ch: int, channels: int, kernel: int, stride: int,
                  expand: int, se_ratio: float, act: Callable = F.silu,
-                 bn_eps: float = 1e-3, bn_folded: bool = False):
+                 bn_eps: float = 1e-3, bn_folded: bool = False, drop_path_rate: float = 0.0):
         super().__init__()
         mid = in_ch * expand
         self.has_skip = stride == 1 and in_ch == channels
@@ -291,26 +370,30 @@ class InvertedResidual2d(nn.Module):
                    if se_ratio > 0 else None)
         self.conv_pwl = Conv2dSame(mid, channels, 1)
         self.bn3 = BatchNormAct(channels, None, bn_eps, bn_folded)
+        self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.bn2(self.conv_dw(self.bn1(self.conv_pw(x))))
         if self.se is not None:
             out = self.se(out)
         out = self.bn3(self.conv_pwl(out))
-        return out + x if self.has_skip else out
+        return self.drop_path(out) + x if self.has_skip else out
 
 
 class EfficientNetV2Features(nn.Module):
     """Features-only EfficientNetV2 trunk: (B, C_in, H, W) → the activation
     at reduction boundary ``out_index`` (0..4 ↔ strides 2..32). Stages past
-    the tap are never built."""
+    the tap are never built. Block ``i`` (counted over every stage of the
+    arch) drops paths at ``drop_path_rate·i/total_blocks``."""
 
     bn_eps = 1e-3  # TF-ported weights; read by models/fold_bn.py
 
     def __init__(self, model_name: str = "efficientnetv2_b0", out_index: int = 4,
-                 in_chans: int = 3, act: Callable = F.silu, bn_folded: bool = False):
+                 in_chans: int = 3, act: Callable = F.silu, bn_folded: bool = False,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         stem_ch, stages = resolve_arch(model_name)
+        total_blocks = sum(s.repeats for s in stages)
         last_stage = self._tap_stages(stages)[out_index]
         eps = self.bn_eps
         self.conv_stem = Conv2dSame(in_chans, stem_ch, 3, 2)
@@ -320,8 +403,10 @@ class EfficientNetV2Features(nn.Module):
         for stage_idx, stage in enumerate(stages[: last_stage + 1]):
             for rep in range(stage.repeats):
                 stride = stage.stride if rep == 0 else 1
+                dpr = drop_path_rate * len(self.block_names) / total_blocks
                 common = dict(in_ch=in_ch, channels=stage.channels, kernel=stage.kernel,
-                              stride=stride, act=act, bn_eps=eps, bn_folded=bn_folded)
+                              stride=stride, act=act, bn_eps=eps, bn_folded=bn_folded,
+                              drop_path_rate=dpr)
                 if stage.kind == "cn":
                     block = ConvBnAct(**common)
                 elif stage.kind == "er":

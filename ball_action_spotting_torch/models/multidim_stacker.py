@@ -31,6 +31,7 @@ from ball_action_spotting_torch.models.blocks3d import (
 )
 from ball_action_spotting_torch.models.effnetv2 import (
     BatchNormAct,
+    Dropout,
     EfficientNetV2Features,
     PointwiseConv,
 )
@@ -49,9 +50,11 @@ PROJECTION_BN_EPS = 1e-5
 
 class MultiDimStacker(nn.Module):
     """See module docstring. Constructor args mirror the JAX module's, so a
-    checkpoint's ``nn_module`` kwargs build the same model. ``drop_rate``
-    and ``drop_path_rate`` are accepted for those kwargs; they act only in
-    training, which this port does not run yet."""
+    checkpoint's ``nn_module`` kwargs build the same model. In training
+    mode ``drop_rate`` is the dropout before the classifier and
+    ``drop_path_rate`` the stochastic depth of the encoder (scaled by block
+    index) and of every 3D block (in full); their masks come from the
+    generator that ``set_dropout_generator`` gives the model."""
 
     def __init__(
         self,
@@ -76,7 +79,6 @@ class MultiDimStacker(nn.Module):
         if num_frames <= 0 or num_frames % stack_size:
             raise ValueError(f"num_frames {num_frames} is not a multiple of "
                              f"stack_size {stack_size}")
-        del drop_path_rate
         act = _ACTS[act_layer]
         self.num_classes = num_classes
         self.num_frames = num_frames
@@ -89,7 +91,7 @@ class MultiDimStacker(nn.Module):
 
         self.conv2d_encoder = EfficientNetV2Features(
             model_name, index_2d_features, in_chans=stack_size, act=act,
-            bn_folded=bn_folded,
+            bn_folded=bn_folded, drop_path_rate=drop_path_rate,
         )
         self.conv2d_projection_conv = PointwiseConv(enc_ch, num_3d_features)
         self.conv2d_projection_bn = BatchNormAct(
@@ -99,13 +101,13 @@ class MultiDimStacker(nn.Module):
             self.add_module(f"conv3d_encoder_{i}", InvertedResidual3d(
                 num_3d_features, expansion_ratio=expansion_3d_ratio,
                 se_reduce_ratio=se_reduce_3d_ratio, act=act, bn_folded=bn_folded,
-                dw_use_kernel=dw3d_use_kernel,
+                dw_use_kernel=dw3d_use_kernel, drop_path_rate=drop_path_rate,
             ))
         self.conv3d_projection_conv = PointwiseConv(num_3d_features, num_3d_stack_proj)
         self.conv3d_projection_bn = BatchNormAct(
             num_3d_stack_proj, act, PROJECTION_BN_EPS, bn_folded, channels_last=True)
         self.global_pool = GeneralizedMeanPooling(3.0)
-        self.dropout = nn.Dropout(drop_rate)
+        self.dropout = Dropout(drop_rate)
         self.classifier = nn.Linear(num_3d_stack_proj * self.num_stacks, num_classes)
 
     @property

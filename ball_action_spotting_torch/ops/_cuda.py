@@ -48,6 +48,7 @@ class CudaKernel:
         self.entry = entry
         self.signature = signature
         self.launches = 0
+        self.launches_by: dict[str, int] = {}
         self.build_log = ""
         self._fn = None
         self._lock = threading.Lock()
@@ -95,13 +96,21 @@ class CudaKernel:
                 self._fn = fn
             return self._fn
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, tag: str | None = None) -> None:
         """Call the entry point on the current stream's work; raise on a
-        nonzero ``cudaGetLastError``; count the launch."""
+        nonzero ``cudaGetLastError``; count the launch, and under ``tag``
+        in ``launches_by`` where the wrapper names one (a kernel with
+        several modes, such as the warp's H and V passes)."""
         err = self.function()(*args)
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: error {err}")
         self.launches += 1
+        if tag is not None:
+            self.launches_by[tag] = self.launches_by.get(tag, 0) + 1
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.launches_by = {}
 
 
 def build_all(kernels) -> dict[str, str]:

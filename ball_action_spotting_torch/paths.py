@@ -1,7 +1,9 @@
 """Workspace path configuration (copy of the JAX package's ``paths.py``).
 
 The workspace root comes from ``BAS_TPU_WORKDIR`` so both packages read and
-write the same experiment and prediction layout.
+write the same experiment and prediction layout. Experiment configs default
+to the port's own copies in ``ball_action_spotting_torch/configs`` (the
+repo's ``configs/`` import the JAX package).
 """
 
 import os
@@ -17,7 +19,7 @@ def data_dir() -> Path:
 
 
 def configs_dir() -> Path:
-    return Path(os.environ.get("BAS_TPU_CONFIGS_DIR", work_dir() / "configs"))
+    return Path(os.environ.get("BAS_TPU_CONFIGS_DIR", Path(__file__).parent / "configs"))
 
 
 def soccernet_dir() -> Path:

@@ -228,7 +228,11 @@ def test_bn_eps_follow_the_jax_modules():
 
 
 def test_training_mode_is_refused(stacker):
+    """Only the BN-folded model refuses training mode (as the JAX folded BN
+    does); the unfolded one trains (``tests/test_torch_train.py``)."""
     _, tree, frames, _, _ = stacker
-    port = port_model(tree).train()
-    with pytest.raises(NotImplementedError):
-        port(torch.from_numpy(frames))
+    folded = build_model("multidim_stacker", bn_folded=True, **NN_KWARGS)
+    folded.load_state_dict(fold_bn_state_dict(jax_variables_to_state_dict(tree, NN_KWARGS)))
+    with pytest.raises(ValueError, match="inference-only"):
+        folded.train()(torch.from_numpy(frames))
+    assert port_model(tree).train()(torch.from_numpy(frames)).shape == (2, 2)

@@ -26,6 +26,7 @@ from ball_action_spotting_torch.ops.dwconv3d import (
     dwconv3d_reference,
 )
 from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_cuda
+from ball_action_spotting_torch.ops.warp import resample_last_axis
 
 RTOL = 1e-4
 
@@ -122,4 +123,6 @@ def test_launch_counters_stay_zero_on_cpu():
         kernel.launches = 0
     gem_pool(torch.rand(2, 3, 4, 8), torch.full((1,), 3.0))
     dwconv3d(torch.rand(1, 2, 3, 4, 8), torch.rand(3, 3, 3, 1, 8))
-    assert [k.launches for k in KERNELS] == [0, 0]
+    resample_last_axis(torch.rand(2, 3, 8), torch.ones(2), torch.zeros(2, 3))
+    assert [k.name for k in KERNELS] == ["gem", "dwconv3d", "warp"]
+    assert [k.launches for k in KERNELS] == [0, 0, 0]
