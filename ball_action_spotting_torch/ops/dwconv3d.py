@@ -6,6 +6,11 @@ x (N, T, H, W, C) and a kernel in the JAX layout (3, 3, 3, 1, C) and returns
 tensor it is the hand-written kernel ``csrc/dwconv3d.cu``; on a CPU tensor
 the plain version ``dwconv3d_reference``. Inference only: the kernel has no
 backward, as in the JAX package.
+
+The kernel walks T inside each block over a ring of three staged input
+slices. It stages with 16-byte copies where C·itemsize is a multiple of 16
+and x is 16-byte aligned, and with one channel pair per copy otherwise; it
+takes any even C and an x aligned to a channel pair.
 """
 
 from __future__ import annotations

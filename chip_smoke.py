@@ -14,8 +14,10 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    line per kernel and shape with its bound on an H100 SXM. GeM at the
    inference head's and the train step's head's shapes in bf16, with its
    backward in float32 and bf16; the depthwise conv at the inference
-   shapes in bf16; the warp resample at the train step's H-pass and V-pass
-   shapes in bf16 and float32.
+   shapes in bf16 and at a dozen small edge shapes (``DW_EDGE_CASES``:
+   T 1, 2, 5; ragged and whole row tiles; W 1 and 96; C 6, 96, 576;
+   float32, bf16, fp16; an x off a 16-byte boundary); the warp resample at
+   the train step's H-pass and V-pass shapes in bf16 and float32.
 3. Drives the flagship ``ChunkedVideoPredictor`` (EfficientNetV2-b0, 15
    frames, 1280x736, four 3D blocks at 576 channels, chunk 128, bf16,
    seeded random weights) over a synthetic video: hflip TTA on and off, the
@@ -121,6 +123,7 @@ GEM_TOL = 1e-4         # × max|ref|: f32 sums of the same bf16 inputs, other or
 GEM_GRAD_RTOL = 1e-3   # × max|ref|: closed-form backward vs autograd of the plain version
 GEM_GRAD_ROUND = 2.0 ** -8  # × |ref|: a bf16 input's dx leaves the backward rounded once to bf16
 DW_TOL = 2.0 ** -7     # × max|ref|: one bf16 rounding step at the largest output
+DW_F32_ATOL = 1e-5     # float32 sums of 27 taps of unit-scale inputs, other order
 PRED_BF16_ATOL = 2e-2  # bf16 sigmoid outputs of two conv orders through 4 blocks
 PRED_F32_ATOL = 1e-4   # float32 (TF32 off) chunked engine vs plain batch forward
 WARP_BF16_TOL = 2.0 ** -7  # × max|ref|: one bf16 rounding step at the largest output
@@ -135,6 +138,27 @@ TRAIN_FRAMES = 15
 BATCH = 4
 TRAIN_EPOCH_SIZE = 16
 WARP_N = BATCH * TRAIN_FRAMES  # frames per train step, each warped once
+# The depthwise conv's edge shapes, (N, T, H, W, C), dtype, offset of x in
+# elements: the ring over T at 1, 2 and 5 slices; a ragged (H 23) or whole
+# (H 3) row tile; a warp with no columns (W 1) and a width near the staging
+# limit (W 96); the narrow copy (C 6), a ragged channel tile (C 96) and the
+# flagship's 9 tiles (C 576); the last case starts one pair past a 16-byte
+# boundary, so x takes the narrow copy although C allows the wide one.
+DW_EDGE_CASES = [
+    ((2, 1, 23, 40, 576), torch.bfloat16, 0),
+    ((1, 2, 3, 40, 96), torch.bfloat16, 0),
+    ((2, 5, 23, 1, 96), torch.float16, 0),
+    ((1, 5, 3, 96, 576), torch.bfloat16, 0),
+    ((3, 5, 23, 40, 6), torch.bfloat16, 0),
+    ((1, 2, 23, 40, 6), torch.float32, 0),
+    ((2, 5, 3, 1, 6), torch.float16, 0),
+    ((1, 1, 3, 96, 96), torch.float16, 0),
+    ((1, 5, 23, 40, 96), torch.float32, 0),
+    ((2, 2, 23, 96, 6), torch.bfloat16, 0),
+    ((1, 5, 23, 40, 576), torch.float32, 0),
+    ((1, 1, 3, 1, 576), torch.float32, 0),
+    ((1, 2, 23, 40, 96), torch.bfloat16, 2),
+]
 TINY_ARCH = (8, (BlockDef("cn", 1, 3, 1, 1, 8), BlockDef("er", 1, 3, 2, 2, 8),
                  BlockDef("er", 1, 3, 2, 2, 16), BlockDef("ir", 1, 3, 2, 2, 16, 0.25),
                  BlockDef("ir", 1, 3, 2, 2, 24, 0.25)), 1.0, 1.0)
@@ -276,6 +300,27 @@ def check_dwconv(dev, num_tta: int) -> dict:
     }
     log(row)
     return row
+
+
+def check_dwconv_edges(dev) -> None:
+    """The depthwise kernel against its plain version at ``DW_EDGE_CASES``."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    t0 = time.perf_counter()
+    worst = 0.0
+    for shape, dtype, offset in DW_EDGE_CASES:
+        flat = torch.randn(math.prod(shape) + offset, generator=g, device=dev).to(dtype)
+        x = flat[offset:].view(shape)
+        k = torch.randn((3, 3, 3, 1, shape[-1]), generator=g, device=dev) / 27 ** 0.5
+        ref = dwconv3d_reference(x, k).float()
+        err = (dwconv3d(x, k).float() - ref).abs().max().item()
+        tol = DW_F32_ATOL if dtype == torch.float32 else DW_TOL * ref.abs().max().item()
+        if not err <= tol:
+            fail(f"dwconv3d kernel vs plain at {shape} {dtype} offset {offset}: "
+                 f"max|diff| {err} > {tol}")
+        worst = max(worst, err / tol)
+    torch.cuda.synchronize()
+    log({"check": "dwconv3d_edge_shapes", "cases": len(DW_EDGE_CASES),
+         "worst_diff_over_tolerance": worst, "seconds": time.perf_counter() - t0})
 
 
 def interpolation_matrices(scale, off_c, w: int, dtype) -> torch.Tensor:
@@ -786,6 +831,7 @@ def main() -> None:
     # num_tta=2 ones; the TTA-off shapes are timed beside them
     check_gem(dev, (CHUNK * 5, 23, 40, 256), "inference, TTA off")
     check_dwconv(dev, 1)
+    check_dwconv_edges(dev)
     torch.cuda.empty_cache()
     rows = {
         "gem_pool_inference": check_gem(dev, (2 * CHUNK * 5, 23, 40, 256), "inference"),

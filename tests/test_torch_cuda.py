@@ -7,17 +7,24 @@ that has only PyTorch; there, run it without the repo's ``conftest.py``
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Without a GPU every test skips. Tolerances: float32 (TF32 off) atol 1e-5
-on [0, 1] images; bfloat16 one bf16 rounding step, 2^-7·max|ref|."""
+on [0, 1] images and on the depthwise conv's unit-scale sums; bfloat16 and
+float16 one rounding step, 2^-7·max|ref| (the depthwise conv's shapes and
+tolerances are ``chip_smoke.py``'s)."""
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
+from ball_action_spotting_torch.ops.dwconv3d import KERNEL as DW_KERNEL
+from ball_action_spotting_torch.ops.dwconv3d import dwconv3d, dwconv3d_reference
 from ball_action_spotting_torch.ops.warp import (
     resample_columns,
     resample_last_axis,
     resample_last_axis_reference,
 )
+from chip_smoke import DW_EDGE_CASES, DW_F32_ATOL, DW_TOL
 
 
 @pytest.fixture()
@@ -54,3 +61,24 @@ def test_warp_kernel_matches_plain_version(cuda, dtype, axis):
     tol = 2.0 ** -7 * ref.float().abs().max().item() if dtype == torch.bfloat16 else 1e-5
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(), atol=tol)
     assert out[1].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,offset", DW_EDGE_CASES)
+def test_dwconv3d_kernel_edge_shapes(cuda, shape, dtype, offset):
+    """The depthwise kernel against its plain version at the ring's, the
+    tiles' and the copies' edges (see ``chip_smoke.DW_EDGE_CASES``)."""
+    rng = np.random.default_rng(0)
+    flat = torch.from_numpy(
+        rng.standard_normal(math.prod(shape) + offset).astype(np.float32)).to(cuda, dtype)
+    x = flat[offset:].view(shape)
+    k = torch.from_numpy(
+        (rng.standard_normal((3, 3, 3, 1, shape[-1])) / 27 ** 0.5).astype(np.float32)).to(cuda)
+    before = DW_KERNEL.launches
+    out = dwconv3d(x, k)
+    ref = dwconv3d_reference(x, k).float()
+    torch.cuda.synchronize()
+    assert DW_KERNEL.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    tol = DW_F32_ATOL if dtype == torch.float32 else DW_TOL * ref.abs().max().item()
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(), atol=tol, rtol=0)

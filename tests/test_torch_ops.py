@@ -74,7 +74,10 @@ def test_gem_grads_match_jax(gem_inputs):
     assert np.all(tx.grad.numpy()[0, 0, 0, :8] == 0.0)  # clamped region
 
 
-@pytest.mark.parametrize("shape", [(2, 5, 7, 10, 32), (1, 3, 4, 6, 64), (1, 1, 3, 3, 8)])
+# the last two at the CUDA kernel's tiling edges: one slice of 23 rows in
+# ragged row tiles, and C = 6, which the kernel stages with narrow copies
+@pytest.mark.parametrize("shape", [(2, 5, 7, 10, 32), (1, 3, 4, 6, 64), (1, 1, 3, 3, 8),
+                                   (1, 1, 23, 40, 16), (1, 5, 23, 40, 6)])
 def test_dwconv3d_matches_jax(shape):
     rng = np.random.default_rng(1)
     x = rng.standard_normal(shape).astype(np.float32)
