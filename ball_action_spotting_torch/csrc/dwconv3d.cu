@@ -47,7 +47,8 @@
 //   mask. W's zero padding is the absent column before the first and after
 //   the last.
 // A width the ring cannot stage at rows = 1, or an odd channel count, is
-// refused.
+// refused (ops/dwconv3d.py routes the first to the grouped conv and pads the
+// second); more than 65535 clips run as several launches.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -63,6 +64,7 @@ constexpr int kMaxThreads = 2 * kMaxRows * kLanes;  // two warps per row
 constexpr int kMinBlocks = 2;                // blocks per SM: at most 96 registers
 constexpr int kSmemTwoBlocks = 113 * 1024;   // ring bytes with two blocks per SM
 constexpr int kSmemOneBlock = 227 * 1024;    // ring bytes with one block per SM
+constexpr int kMaxGridY = 65535;             // clips per launch
 
 __device__ __forceinline__ float2 to_float2(float2 v) { return v; }
 // a bf16 is the upper half of its float: one shift or mask per value
@@ -278,14 +280,23 @@ int launch_tiled(const void* x, const float* taps, void* out, int n, int t, int 
   rows = (h + row_tiles - 1) / row_tiles;  // even tiles: no more of them, less halo
   const size_t smem = row_bytes * (rows + 2);
   const long long blocks_x = (long long)row_tiles * ((c_pairs + kLanes - 1) / kLanes);
-  if (blocks_x > 2147483647LL || n > 65535) return (int)cudaErrorInvalidValue;
+  if (blocks_x > 2147483647LL) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       dwconv3d_kernel<T2, kWide>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)blocks_x, n);
-  dwconv3d_kernel<T2, kWide><<<grid, 2 * rows * kLanes, smem, stream>>>(
-      (const T2*)x, taps, (T2*)out, t, h, w, c_pairs, rows, row_tiles);
-  return (int)cudaGetLastError();
+  // the grid's y holds at most 65535 clips: larger n goes in slices, each
+  // its own launch on the same stream (a clip's offset keeps x's alignment)
+  const size_t clip_len = (size_t)t * h * w * c_pairs;
+  for (int n0 = 0; n0 < n; n0 += kMaxGridY) {
+    const int nn = n - n0 < kMaxGridY ? n - n0 : kMaxGridY;
+    const dim3 grid((unsigned)blocks_x, nn);
+    dwconv3d_kernel<T2, kWide><<<grid, 2 * rows * kLanes, smem, stream>>>(
+        (const T2*)x + n0 * clip_len, taps, (T2*)out + n0 * clip_len, t, h, w, c_pairs,
+        rows, row_tiles);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 template <typename T2>

@@ -10,7 +10,13 @@ backward, as in the JAX package.
 The kernel walks T inside each block over a ring of three staged input
 slices. It stages with 16-byte copies where C·itemsize is a multiple of 16
 and x is 16-byte aligned, and with one channel pair per copy otherwise; it
-takes any even C and an x aligned to a channel pair.
+takes any even C and an x aligned to a channel pair, and slices N itself.
+``dwconv3d`` brings every other CUDA tensor to it: a non-contiguous or
+misaligned x is copied, and an odd C gets one zero channel (and one zero
+tap column), sliced off the output. A width whose three staged rows do not
+fit a block's shared memory (``kernel_stages``) goes to
+``dwconv3d_grouped_conv`` instead, as the JAX package goes to its lax conv
+when a slice does not fit VMEM.
 """
 
 from __future__ import annotations
@@ -29,6 +35,18 @@ KERNEL = CudaKernel(
      ctypes.c_void_p],
 )
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# csrc/dwconv3d.cu's staging arithmetic (launch_tiled): a ring of 3 slots of
+# (rows + 2) halo rows × W positions × 32 channel pairs, in one block of at
+# most 227 KB of shared memory
+_SLOTS, _LANES, _SMEM_ONE_BLOCK = 3, 32, 227 * 1024
+
+
+def kernel_stages(w: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel can stage a width-``w`` input of ``dtype``: one
+    output row (three halo rows) of the ring must fit one block's shared
+    memory. Bf16 and fp16 fit up to W 201, float32 up to W 100."""
+    row_bytes = _SLOTS * w * _LANES * 2 * dtype.itemsize
+    return _SMEM_ONE_BLOCK // row_bytes - 2 >= 1
 
 
 def _check_kernel_shape(x: torch.Tensor, kernel: torch.Tensor) -> None:
@@ -72,6 +90,8 @@ def dwconv3d_cuda(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     if c % 2 or x.data_ptr() % (2 * x.element_size()):
         raise ValueError("dwconv3d kernel reads channel pairs: C must be even and "
                          "x aligned to a pair")
+    if not kernel_stages(w, x.dtype):
+        raise ValueError(f"dwconv3d kernel cannot stage W {w} in {x.dtype}")
     taps = kernel.reshape(27, c).float().contiguous()
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
@@ -83,10 +103,23 @@ def dwconv3d_cuda(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 def dwconv3d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Depthwise 3×3×3 SAME conv: x (N, T, H, W, C), kernel (3, 3, 3, 1, C)
     → (N, T, H, W, C) in x's dtype. A CUDA tensor goes through the kernel
-    (or raises); a CPU tensor through the plain version."""
-    if x.device.type == "cuda":
-        return dwconv3d_cuda(x, kernel)
-    return dwconv3d_reference(x, kernel)
+    (or through the grouped conv where the kernel cannot stage W); a CPU
+    tensor through the plain version."""
+    if x.device.type != "cuda":
+        return dwconv3d_reference(x, kernel)
+    _check_kernel_shape(x, kernel)
+    if not kernel_stages(x.shape[3], x.dtype):
+        return dwconv3d_grouped_conv(x, kernel)
+    c = x.shape[-1]
+    if c % 2:  # one zero channel makes the pairs whole; its output is dropped
+        x = F.pad(x, (0, 1))
+        kernel = F.pad(kernel, (0, 1))
+    elif not x.is_contiguous():
+        x = x.contiguous()
+    elif x.data_ptr() % (2 * x.element_size()):
+        x = x.clone()  # a fresh allocation starts on a pair
+    out = dwconv3d_cuda(x, kernel)
+    return out[..., :c].contiguous() if c % 2 else out
 
 
 def dwconv3d_grouped_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:

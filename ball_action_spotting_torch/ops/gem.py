@@ -4,15 +4,17 @@ scalar ``p``.
 Port of the JAX package's ``ops/pallas_gem.py``. ``gem_pool`` takes
 (B, H, W, C) channels-last input and a (1,) float32 ``p`` and returns (B, C)
 float32. On a CUDA tensor the forward is the hand-written kernel
-``csrc/gem.cu``; on a CPU tensor it is the plain version
-``gem_pool_reference``. The backward is the plain PyTorch formula of the JAX
-custom VJP (``_gem_bwd``) on both, since the JAX package has no backward
-kernel.
+``csrc/gem.cu`` (16-byte loads where ``wide_path`` allows them, H·W split
+over ``gem_splits`` blocks where the batch fills too few); on a CPU tensor
+it is the plain version ``gem_pool_reference``. The backward is the plain
+PyTorch formula of the JAX custom VJP (``_gem_bwd``) on both, since the JAX
+package has no backward kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -20,10 +22,35 @@ from ball_action_spotting_torch.ops._cuda import CudaKernel, stream_handle
 
 KERNEL = CudaKernel(
     "gem", "gem_forward",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p],
 )
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_WARPS = 4  # csrc/gem.cu's warps per block, each over its own positions
+
+
+def wide_path(x: torch.Tensor) -> bool:
+    """Whether ``csrc/gem.cu`` loads 16 bytes of channels per lane for a
+    contiguous (B, H, W, C) ``x``: C·itemsize a multiple of 16 and x
+    16-byte aligned; else one channel per lane."""
+    return (x.shape[-1] * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def gem_splits(b: int, hw: int, c: int, vec: int, sms: int) -> int:
+    """Blocks over the H·W positions of one (batch row, channel tile): 1
+    where the B × ceil(C / (32·vec)) tiles give at least two blocks per SM,
+    else enough splits for that, each with at least four positions per
+    warp."""
+    tiles = b * -(-c // (32 * vec))
+    if tiles >= 2 * sms:
+        return 1
+    return max(1, min(-(-2 * sms // tiles), hw // (4 * _WARPS)))
 
 
 def gem_pool_reference(x: torch.Tensor, p: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -47,18 +74,23 @@ def gem_pool_cuda(x: torch.Tensor, p: torch.Tensor, eps: float = 1e-6) -> torch.
     _check_shapes(x, p)
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"gem_pool kernel takes float32/bfloat16/float16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("gem_pool kernel needs a contiguous channels-last tensor")
     if p.dtype != torch.float32 or p.device != x.device:
         raise ValueError("gem_pool kernel needs p in float32 on x's device")
     b, h, w, c = x.shape
     if min(b, h, w, c) == 0:
         raise ValueError(f"gem_pool kernel got an empty tensor {tuple(x.shape)}")
+    x = x.contiguous()
     p = p.contiguous()
+    wide = wide_path(x)
+    vec = 16 // x.element_size() if wide else 1
+    splits = gem_splits(b, h * w, c, vec, _sm_count(x.device.index))
     out = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((splits, b, c), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
     with torch.cuda.device(x.device):
-        KERNEL.launch(x.data_ptr(), p.data_ptr(), out.data_ptr(), b, h * w, c,
-                      float(eps), _DTYPE_CODE[x.dtype], stream_handle(x))
+        KERNEL.launch(x.data_ptr(), p.data_ptr(), out.data_ptr(),
+                      None if partial is None else partial.data_ptr(), b, h * w, c,
+                      float(eps), _DTYPE_CODE[x.dtype], int(wide), splits, stream_handle(x))
     return out
 
 

@@ -11,9 +11,12 @@ with zeros outside, where the offset is taken at the center of each block of
 ``resample_last_axis`` runs the H pass and ``resample_columns`` the V pass
 over a batch of N images. On a CUDA tensor both are one launch of the
 hand-written kernel ``csrc/warp.cu`` (the V pass reads down the columns, so it
-needs no transposes); on a CPU tensor they are the plain version, the JAX
-package's interpolation-matrix formula (``resample_last_axis_reference``).
+needs no transposes), which reads each block's center offset itself; on a
+CPU tensor they are the plain version, the JAX package's
+interpolation-matrix formula (``resample_last_axis_reference``).
 ``affine_warp`` composes them for (N, H, W) images and (N, 3, 3) inverse maps.
+The kernel moves 16-byte vectors where ``wide_path`` allows it and one
+element per thread otherwise.
 
 ``precision="bfloat16"`` rounds the image and the interpolation weights to
 bf16 and sums in float32; ``"highest"`` runs in float32. A bf16 image rounds
@@ -34,8 +37,23 @@ KERNEL = CudaKernel(
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 )
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PRECISIONS = ("highest", "bfloat16")
+_SMEM_ONE_BLOCK = 227 * 1024  # an H-pass block stages at least one whole row
+
+
+def wide_path(img: torch.Tensor, block: int, axis: int) -> bool:
+    """Whether ``csrc/warp.cu`` takes its 16-byte path for a contiguous
+    (N, H, W) ``img``: rows of whole 16-byte vectors from a 16-byte aligned
+    start; the V pass (axis 1) also needs whole vectors in each column
+    block, the H pass (axis 2) a row that fits one block's shared memory."""
+    vec = 16 // img.element_size()
+    w = img.shape[2]
+    if w % vec or img.data_ptr() % 16:
+        return False
+    if axis == 1:
+        return block % vec == 0
+    return w * img.element_size() <= _SMEM_ONE_BLOCK
 
 
 def block_center_offsets(offsets: torch.Tensor, block: int) -> torch.Tensor:
@@ -111,22 +129,22 @@ def _resample_cuda(img: torch.Tensor, scale: torch.Tensor, offsets: torch.Tensor
     if img.device.type != "cuda":
         raise ValueError(f"the warp kernel needs a CUDA tensor, got {img.device}")
     if img.dtype not in _DTYPE_CODE:
-        raise ValueError(f"the warp kernel takes float32/bfloat16, got {img.dtype}")
-    if not img.is_contiguous():
-        raise ValueError("the warp kernel needs a contiguous (N, H, W) tensor")
+        raise ValueError(f"the warp kernel takes float32/bfloat16/float16, got {img.dtype}")
     if scale.device != img.device or offsets.device != img.device:
         raise ValueError("scale and offsets must lie on the image's device")
     n, h, w = img.shape
     if min(n, h, w) == 0:
         raise ValueError(f"the warp kernel got an empty tensor {tuple(img.shape)}")
-    off_c = block_center_offsets(offsets, block)
+    img = img.contiguous()
     scale = scale.float().contiguous()
+    offsets = offsets.float().contiguous()
     out = torch.empty_like(img)
     bf16_math = int(precision == "bfloat16" or img.dtype == torch.bfloat16)
     with torch.cuda.device(img.device):
-        KERNEL.launch(img.data_ptr(), out.data_ptr(), scale.data_ptr(), off_c.data_ptr(),
-                      n, h, w, block, off_c.shape[1], axis, _DTYPE_CODE[img.dtype],
-                      bf16_math, stream_handle(img), tag="H" if axis == 2 else "V")
+        KERNEL.launch(img.data_ptr(), out.data_ptr(), scale.data_ptr(), offsets.data_ptr(),
+                      n, h, w, block, axis, _DTYPE_CODE[img.dtype], bf16_math,
+                      int(wide_path(img, block, axis)), stream_handle(img),
+                      tag="H" if axis == 2 else "V")
     return out
 
 

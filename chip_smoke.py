@@ -10,14 +10,21 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    source, all at once), printing the build time and ptxas' report.
 2. Holds each kernel against its plain PyTorch version at the main paths'
    shapes, and times kernel, plain version and the one PyTorch call that
-   computes the same function (CUDA events, median of 10). Prints one JSON
+   computes the same function (CUDA events around the call, median of 10:
+   ``kernel_ms``, what a caller pays) and the kernel's own device time
+   (torch.profiler over 10 calls, median: ``device_ms``). Prints one JSON
    line per kernel and shape with its bound on an H100 SXM. GeM at the
    inference head's and the train step's head's shapes in bf16, with its
-   backward in float32 and bf16; the depthwise conv at the inference
-   shapes in bf16 and at a dozen small edge shapes (``DW_EDGE_CASES``:
-   T 1, 2, 5; ragged and whole row tiles; W 1 and 96; C 6, 96, 576;
-   float32, bf16, fp16; an x off a 16-byte boundary); the warp resample at
-   the train step's H-pass and V-pass shapes in bf16 and float32.
+   backward in float32 and bf16, and two runs bit-identical; the depthwise
+   conv at the inference shapes in bf16; the warp resample at the train
+   step's H-pass and V-pass shapes in bf16 and float32. Then the edge
+   shapes: ``DW_EDGE_CASES`` (T 1, 2, 5; ragged and whole row tiles; W 1
+   and 96; C 6, 96, 576; float32, bf16, fp16; an x off a 16-byte
+   boundary), ``DW_ROUTE_CASES`` (odd C, N 65536, strided and misaligned
+   x, widths past the staging limit through the grouped conv, each with
+   its count of kernel launches), ``GEM_EDGE_CASES`` and
+   ``WARP_EDGE_CASES`` (both load widths of each kernel, odd blocks,
+   flips, fp16, a large B, N 1 with H 1).
 3. Drives the flagship ``ChunkedVideoPredictor`` (EfficientNetV2-b0, 15
    frames, 1280x736, four 3D blocks at 576 channels, chunk 128, bf16,
    seeded random weights) over a synthetic video: hflip TTA on and off, the
@@ -77,6 +84,8 @@ from ball_action_spotting_torch.domains import ball
 from ball_action_spotting_torch.models import build_model, init_train_weights, init_weights
 from ball_action_spotting_torch.models.effnetv2 import EFFNETV2_ARCHS, BatchNormAct, BlockDef
 from ball_action_spotting_torch.ops import KERNELS
+from ball_action_spotting_torch.ops import dwconv3d as dw_ops
+from ball_action_spotting_torch.ops import gem as gem_ops
 from ball_action_spotting_torch.ops import warp as warp_ops
 from ball_action_spotting_torch.ops._cuda import build_all
 from ball_action_spotting_torch.ops.augment import (
@@ -119,7 +128,7 @@ PARAMS = {
     "frames_processor": ("pad_normalize", {"size": (WIDTH, HEIGHT)}),
 }
 # Stated tolerances.
-GEM_TOL = 1e-4         # × max|ref|: f32 sums of the same bf16 inputs, other order
+GEM_TOL = 1e-4         # × max|ref|: f32 sums in another order, MUFU log2/exp2 (~1e-6 rel.)
 GEM_GRAD_RTOL = 1e-3   # × max|ref|: closed-form backward vs autograd of the plain version
 GEM_GRAD_ROUND = 2.0 ** -8  # × |ref|: a bf16 input's dx leaves the backward rounded once to bf16
 DW_TOL = 2.0 ** -7     # × max|ref|: one bf16 rounding step at the largest output
@@ -159,6 +168,65 @@ DW_EDGE_CASES = [
     ((1, 1, 3, 1, 576), torch.float32, 0),
     ((1, 2, 23, 40, 96), torch.bfloat16, 2),
 ]
+# The shape route of ``ops/dwconv3d.py::dwconv3d`` on a CUDA tensor,
+# (N, T, H, W, C), dtype, layout of x, kernel launches: odd C (one zero
+# channel appended), more clips than a grid's y holds (the launcher slices
+# N), a transposed (non-contiguous) and a pair-misaligned x (copied), and
+# widths on both sides of the staging limit (bf16 W 201 stages, W 202 and
+# float32 W 128 go to the grouped conv and launch nothing).
+DW_ROUTE_CASES = [
+    ((1, 3, 4, 6, 5), torch.bfloat16, "contiguous", 1),
+    ((2, 2, 23, 40, 7), torch.float32, "contiguous", 1),
+    ((65536, 1, 1, 1, 2), torch.bfloat16, "contiguous", 1),
+    ((1, 2, 5, 6, 64), torch.bfloat16, "transposed", 1),
+    ((1, 2, 5, 6, 9), torch.float16, "transposed", 1),
+    ((1, 2, 5, 6, 64), torch.float16, "misaligned", 1),
+    ((1, 2, 3, 201, 8), torch.bfloat16, "contiguous", 1),
+    ((1, 2, 3, 202, 8), torch.bfloat16, "contiguous", 0),
+    ((1, 2, 3, 128, 8), torch.float32, "contiguous", 0),
+]
+# GeM's edge shapes, (B, H, W, C), dtype, offset of x in elements: the
+# 16-byte path (C 8, 256, 1280 in bf16/fp16; C 256, 1280 in float32) and the
+# one-channel path (C 6; an x one element past a 16-byte boundary); H·W 1
+# and 920; H·W split over several blocks (few batch rows) and not split
+# (70000 batch rows in the kernel's one-dimensional grid).
+GEM_EDGE_CASES = [
+    ((3, 1, 1, 256), torch.bfloat16, 0),
+    ((2, 23, 40, 6), torch.bfloat16, 0),
+    ((3, 23, 40, 6), torch.float32, 0),
+    ((2, 5, 4, 8), torch.float16, 0),
+    ((1, 1, 1, 8), torch.float16, 0),
+    ((2, 23, 40, 256), torch.bfloat16, 1),
+    ((2, 23, 40, 256), torch.float32, 0),
+    ((4, 23, 40, 1280), torch.float32, 0),
+    ((1, 30, 31, 1280), torch.float16, 0),
+    ((70000, 1, 2, 8), torch.bfloat16, 0),
+]
+# The warp's edge shapes: pass ("rows" = H, "columns" = V), (N, H, W),
+# dtype, block, scale, base offset (the offsets are base + 0.01·t + 0.3·i
+# for image i), precision, offset of the image in elements. W 100 (not a
+# multiple of 8) and a misaligned view take the one-element path, as does
+# block 7 in the V pass; scales 0.5, 2.0 and −1.0 (a flip about the last
+# row or column); a base of 500 puts every tap outside (all zeros); fp16;
+# a float32 image in bf16 mode; N 1 with H 1.
+WARP_EDGE_CASES = [
+    ("rows", (3, 37, 100), torch.bfloat16, 8, 0.97, 2.0, "bfloat16", 0),
+    ("columns", (3, 37, 100), torch.bfloat16, 8, 0.97, 2.0, "bfloat16", 0),
+    ("rows", (2, 40, 96), torch.bfloat16, 7, 1.03, -3.0, "bfloat16", 0),
+    ("columns", (2, 40, 96), torch.bfloat16, 7, 1.03, -3.0, "bfloat16", 0),
+    ("columns", (2, 40, 96), torch.float32, 8, 0.9, 1.0, "highest", 0),
+    ("columns", (2, 40, 96), torch.float32, 8, 0.9, 1.0, "bfloat16", 0),
+    ("rows", (2, 64, 128), torch.bfloat16, 32, 1.0, 0.5, "bfloat16", 1),
+    ("columns", (2, 64, 128), torch.bfloat16, 32, 1.0, 0.5, "bfloat16", 1),
+    ("rows", (2, 33, 128), torch.bfloat16, 32, 0.5, 30.0, "bfloat16", 0),
+    ("columns", (2, 128, 64), torch.float32, 32, 2.0, -10.0, "highest", 0),
+    ("rows", (2, 16, 256), torch.float16, 32, -1.0, 255.0, "highest", 0),
+    ("columns", (2, 256, 16), torch.float16, 8, -1.0, 255.0, "highest", 0),
+    ("rows", (2, 24, 64), torch.bfloat16, 8, 1.0, 500.0, "bfloat16", 0),
+    ("columns", (1, 1, 64), torch.bfloat16, 32, 1.0, 0.0, "bfloat16", 0),
+    ("rows", (1, 1, 64), torch.float32, 32, 1.0, 0.3, "highest", 0),
+    ("rows", (3, 37, 1280), torch.float32, 32, 1.03, -3.0, "highest", 0),
+]
 TINY_ARCH = (8, (BlockDef("cn", 1, 3, 1, 1, 8), BlockDef("er", 1, 3, 2, 2, 8),
                  BlockDef("er", 1, 3, 2, 2, 16), BlockDef("ir", 1, 3, 2, 2, 16, 0.25),
                  BlockDef("ir", 1, 3, 2, 2, 24, 0.25)), 1.0, 1.0)
@@ -185,6 +253,29 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, match: str, reps: int = 10, warmup: int = 2) -> float:
+    """The kernel's own time per call: the median over ``reps`` calls of
+    ``fn`` of the summed device time of the kernels whose name holds
+    ``match`` (torch.profiler, which traces ctypes launches like any other)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name)
+    if not spans or len(spans) % reps:
+        fail(f"the profiler saw {len(spans)} launches of {match!r} in {reps} calls")
+    per_call = len(spans) // reps
+    return statistics.median(
+        sum(end - start for start, end in spans[i:i + per_call]) / 1e3
+        for i in range(0, len(spans), per_call))
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -253,6 +344,8 @@ def check_gem(dev, shape: tuple, path: str) -> dict:
     tol = GEM_TOL * ref.abs().max().item()
     if not err <= tol:
         fail(f"gem kernel vs plain ({path}, {shape}): max|diff| {err} > {tol}")
+    if not torch.equal(gem_pool(x, p), out):
+        fail(f"gem kernel ({path}, {shape}): two runs on one input differ")
     backward = {"float32": gem_backward_diffs(x[: CHUNK * 5].float(), p),
                 "bfloat16": gem_backward_diffs(x[: CHUNK * 5], p)}
     torch.cuda.empty_cache()
@@ -263,6 +356,7 @@ def check_gem(dev, shape: tuple, path: str) -> dict:
         "name": "gem_pool", "path": path, "shape": list(x.shape), "dtype": "bfloat16",
         "max_abs_diff": err, "tolerance": tol,
         "kernel_ms": median_ms(lambda: gem_pool(x, p)),
+        "device_ms": device_ms(lambda: gem_pool(x, p), "gem_"),
         "plain_ms": median_ms(lambda: gem_pool_reference(x, p)),
         "library_ms": median_ms(
             lambda: x.float().clamp_min(1e-6).pow(p).mean((1, 2)).pow(1.0 / p)),
@@ -294,6 +388,7 @@ def check_dwconv(dev, num_tta: int) -> dict:
         "name": "dwconv3d", "tta": num_tta == 2, "shape": list(x.shape), "dtype": "bfloat16",
         "max_abs_diff": err, "tolerance": tol, "library_max_abs_diff": lib_err,
         "kernel_ms": median_ms(lambda: dwconv3d(x, k)),
+        "device_ms": device_ms(lambda: dwconv3d(x, k), "dwconv3d_kernel"),
         "plain_ms": median_ms(lambda: dwconv3d_reference(x, k)),
         "library_ms": median_ms(lambda: dwconv3d_grouped_conv(x, k)),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -318,8 +413,119 @@ def check_dwconv_edges(dev) -> None:
             fail(f"dwconv3d kernel vs plain at {shape} {dtype} offset {offset}: "
                  f"max|diff| {err} > {tol}")
         worst = max(worst, err / tol)
+    for shape, dtype, layout, launches in DW_ROUTE_CASES:
+        x = route_input(shape, dtype, layout, lambda numel: torch.randn(
+            numel, generator=g, device=dev))
+        k = torch.randn((3, 3, 3, 1, shape[-1]), generator=g, device=dev) / 27 ** 0.5
+        ref = dwconv3d_reference(x, k).float()
+        before = dw_ops.KERNEL.launches
+        out = dwconv3d(x, k)
+        made = dw_ops.KERNEL.launches - before
+        err = (out.float() - ref).abs().max().item()
+        tol = DW_F32_ATOL if dtype == torch.float32 else DW_TOL * ref.abs().max().item()
+        if not (err <= tol and made == launches and out.shape == x.shape
+                and out.dtype == dtype):
+            fail(f"dwconv3d route at {shape} {dtype} {layout}: max|diff| {err} (tolerance "
+                 f"{tol}), {made} kernel launches (expected {launches}), "
+                 f"out {tuple(out.shape)} {out.dtype}")
+        worst = max(worst, err / tol)
     torch.cuda.synchronize()
-    log({"check": "dwconv3d_edge_shapes", "cases": len(DW_EDGE_CASES),
+    log({"check": "dwconv3d_edge_shapes", "cases": len(DW_EDGE_CASES) + len(DW_ROUTE_CASES),
+         "worst_diff_over_tolerance": worst, "seconds": time.perf_counter() - t0})
+
+
+def route_input(shape: tuple, dtype, layout: str, randn) -> torch.Tensor:
+    """An x of ``shape`` for ``DW_ROUTE_CASES``: contiguous, the transpose
+    of a contiguous tensor in H and W, or a contiguous view one element
+    past an allocation's start (off a channel pair). ``randn(numel)`` gives
+    the float32 values."""
+    if layout == "transposed":
+        n, t, h, w, c = shape
+        return randn(math.prod(shape)).to(dtype).view(n, t, w, h, c).transpose(2, 3)
+    offset = 1 if layout == "misaligned" else 0
+    return randn(math.prod(shape) + offset).to(dtype)[offset:].view(shape)
+
+
+def check_gem_edges(dev) -> None:
+    """GeM's kernel against its plain version at ``GEM_EDGE_CASES``, each
+    run twice for bit-identical output."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    t0 = time.perf_counter()
+    worst = 0.0
+    p = torch.tensor([3.0], device=dev)
+    for shape, dtype, offset in GEM_EDGE_CASES:
+        flat = torch.randn(math.prod(shape) + offset, generator=g, device=dev).to(dtype)
+        x = flat[offset:].view(shape)
+        before = gem_ops.KERNEL.launches
+        out = gem_pool(x, p)
+        ref = gem_pool_reference(x, p)
+        err = (out - ref).abs().max().item()
+        tol = GEM_TOL * ref.abs().max().item()
+        if not (err <= tol and gem_ops.KERNEL.launches == before + 1
+                and torch.equal(gem_pool(x, p), out)):
+            fail(f"gem kernel vs plain at {shape} {dtype} offset {offset}: max|diff| {err} "
+                 f"(tolerance {tol}), or not launched once, or two runs differ")
+        worst = max(worst, err / tol)
+    torch.cuda.synchronize()
+    log({"check": "gem_edge_shapes", "cases": len(GEM_EDGE_CASES),
+         "worst_diff_over_tolerance": worst, "seconds": time.perf_counter() - t0})
+
+
+def warp_edge_inputs(case, values):
+    """(img, kernel call, plain call) of one ``WARP_EDGE_CASES`` case;
+    ``values(numel)`` gives the image's float32 values on the device."""
+    axis, (n, h, w), dtype, block, scale, base, precision, offset = case
+    img = values(n * h * w + offset).to(dtype)[offset:].view(n, h, w)
+    dev = img.device
+    length = h if axis == "rows" else w
+    scales = torch.full((n,), scale, device=dev)
+    offsets = (base + 0.01 * torch.arange(length, device=dev)[None]
+               + 0.3 * torch.arange(n, device=dev)[:, None]).float()
+    if axis == "rows":
+        def kernel():
+            return warp_ops.resample_last_axis(img, scales, offsets, block, precision)
+
+        def plain():
+            return warp_ops.resample_last_axis_reference(img, scales, offsets, block, precision)
+    else:
+        def kernel():
+            return warp_ops.resample_columns(img, scales, offsets, block, precision)
+
+        def plain():
+            return warp_ops.resample_last_axis_reference(
+                img.transpose(1, 2), scales, offsets, block, precision).transpose(1, 2)
+    return img, kernel, plain
+
+
+def warp_tolerance(dtype, precision: str, ref: torch.Tensor) -> float:
+    """float32 out of float32 math: atol 1e-5; anything rounded to bf16 or
+    fp16: one bf16 step at the largest output."""
+    if dtype == torch.float32 and precision == "highest":
+        return WARP_F32_ATOL
+    return WARP_BF16_TOL * ref.float().abs().max().item()
+
+
+def check_warp_edges(dev) -> None:
+    """The warp kernel against its plain version at ``WARP_EDGE_CASES``."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    t0 = time.perf_counter()
+    worst = 0.0
+    for case in WARP_EDGE_CASES:
+        img, kernel, plain = warp_edge_inputs(
+            case, lambda numel: torch.rand(numel, generator=g, device=dev))
+        before = warp_ops.KERNEL.launches
+        out, ref = kernel(), plain()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = warp_tolerance(img.dtype, case[6], ref)
+        if not (err <= tol and out.dtype == img.dtype
+                and warp_ops.KERNEL.launches == before + 1):
+            fail(f"warp kernel vs plain at {case}: max|diff| {err} > {tol}, or out "
+                 f"{out.dtype}, or not launched once")
+        if case[5] >= 500.0 and out.abs().max().item() != 0.0:
+            fail(f"warp kernel at {case}: taps all outside, output not zero")
+        worst = max(worst, err / tol if tol else err)
+    torch.cuda.synchronize()
+    log({"check": "warp_edge_shapes", "cases": len(WARP_EDGE_CASES),
          "worst_diff_over_tolerance": worst, "seconds": time.perf_counter() - t0})
 
 
@@ -370,7 +576,8 @@ def check_warp(dev, axis: str, dtype) -> dict:
     row = {"name": "warp_resample", "pass": "H" if axis == "rows" else "V",
            "shape": [n, h, w], "dtype": str(dtype).replace("torch.", ""),
            "max_abs_diff": err, "tolerance": tol,
-           "kernel_ms": median_ms(kernel), "plain_ms": median_ms(plain, reps=3, warmup=1)}
+           "kernel_ms": median_ms(kernel), "device_ms": device_ms(kernel, "resample"),
+           "plain_ms": median_ms(plain, reps=3, warmup=1)}
     # the library call: one bmm of the row blocks with the interpolation
     # matrices, built before the clock starts
     off_c = warp_ops.block_center_offsets(offsets, 32)
@@ -832,6 +1039,8 @@ def main() -> None:
     check_gem(dev, (CHUNK * 5, 23, 40, 256), "inference, TTA off")
     check_dwconv(dev, 1)
     check_dwconv_edges(dev)
+    check_gem_edges(dev)
+    check_warp_edges(dev)
     torch.cuda.empty_cache()
     rows = {
         "gem_pool_inference": check_gem(dev, (2 * CHUNK * 5, 23, 40, 256), "inference"),
@@ -874,11 +1083,11 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path_launches[kernel], "max_abs_err": row["max_abs_diff"],
-            "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+            "ms": row["kernel_ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
         })
-    if any(not math.isfinite(k["ms"]) for k in kernels):
+    if any(not (math.isfinite(k["ms"]) and math.isfinite(k["device_ms"])) for k in kernels):
         fail("a kernel time is not finite")
     log(card)
     log({"kernels": kernels})

@@ -24,9 +24,11 @@ from ball_action_spotting_torch.ops.dwconv3d import (
     dwconv3d_cuda,
     dwconv3d_grouped_conv,
     dwconv3d_reference,
+    kernel_stages,
 )
-from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_cuda
-from ball_action_spotting_torch.ops.warp import resample_last_axis
+from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_cuda, gem_splits
+from ball_action_spotting_torch.ops.gem import wide_path as gem_wide_path
+from ball_action_spotting_torch.ops.warp import resample_columns, resample_last_axis
 
 RTOL = 1e-4
 
@@ -74,10 +76,11 @@ def test_gem_grads_match_jax(gem_inputs):
     assert np.all(tx.grad.numpy()[0, 0, 0, :8] == 0.0)  # clamped region
 
 
-# the last two at the CUDA kernel's tiling edges: one slice of 23 rows in
-# ragged row tiles, and C = 6, which the kernel stages with narrow copies
+# then the CUDA kernel's tiling edges: one slice of 23 rows in ragged row
+# tiles, C = 6, which the kernel stages with narrow copies, and odd C, which
+# the CUDA route pads by one zero channel
 @pytest.mark.parametrize("shape", [(2, 5, 7, 10, 32), (1, 3, 4, 6, 64), (1, 1, 3, 3, 8),
-                                   (1, 1, 23, 40, 16), (1, 5, 23, 40, 6)])
+                                   (1, 1, 23, 40, 16), (1, 5, 23, 40, 6), (1, 3, 4, 6, 5)])
 def test_dwconv3d_matches_jax(shape):
     rng = np.random.default_rng(1)
     x = rng.standard_normal(shape).astype(np.float32)
@@ -129,3 +132,68 @@ def test_launch_counters_stay_zero_on_cpu():
     resample_last_axis(torch.rand(2, 3, 8), torch.ones(2), torch.zeros(2, 3))
     assert [k.name for k in KERNELS] == ["gem", "dwconv3d", "warp"]
     assert [k.launches for k in KERNELS] == [0, 0, 0]
+
+
+# csrc/dwconv3d.cu stages three rows of 3 slots × W × 32 channel pairs in at
+# most 227 KB: 384·W bytes in bf16/fp16 (W ≤ 201), 768·W in float32 (W ≤ 100)
+@pytest.mark.parametrize("w,dtype,stages", [
+    (40, torch.bfloat16, True), (96, torch.bfloat16, True), (201, torch.bfloat16, True),
+    (202, torch.bfloat16, False), (201, torch.float16, True), (202, torch.float16, False),
+    (40, torch.float32, True), (100, torch.float32, True), (101, torch.float32, False),
+    (128, torch.float32, False),
+])
+def test_dwconv3d_staging_predicate(w, dtype, stages):
+    assert kernel_stages(w, dtype) is stages
+
+
+@pytest.mark.parametrize("shape,dtype,offset,wide", [
+    ((1280, 23, 40, 256), torch.bfloat16, 0, True),   # inference head, hflip TTA on
+    ((4, 23, 40, 1280), torch.bfloat16, 0, True),     # train head
+    ((2, 3, 4, 8), torch.float16, 0, True),
+    ((2, 3, 4, 12), torch.float32, 0, True),           # 48 bytes a position
+    ((2, 3, 4, 6), torch.float32, 0, False),           # 24 bytes a position
+    ((2, 3, 4, 6), torch.bfloat16, 0, False),          # 12 bytes a position
+    ((2, 3, 4, 256), torch.bfloat16, 1, False),        # one element past a 16-byte boundary
+])
+def test_gem_wide_path_predicate(shape, dtype, offset, wide):
+    flat = torch.zeros(int(np.prod(shape)) + offset, dtype=dtype)
+    assert gem_wide_path(flat[offset:].view(shape)) is wide
+
+
+@pytest.mark.parametrize("b,hw,c,vec,splits", [
+    (1280, 920, 256, 8, 1),  # inference head: 1280 tiles fill 132 SMs
+    (640, 920, 256, 8, 1),
+    (4, 920, 1280, 8, 14),   # train head: 20 tiles, split to 280 blocks
+    (4, 920, 1280, 1, 2),    # one channel a lane: 160 tiles
+    (1, 1, 8, 8, 1),         # one position cannot be split
+    (2, 40, 8, 8, 2),        # at least 16 positions (4 per warp) a split
+])
+def test_gem_splits(b, hw, c, vec, splits):
+    assert gem_splits(b, hw, c, vec, sms=132) == splits
+
+
+@pytest.mark.parametrize("case", ["gem_strided_fp16", "dwconv3d_odd_c", "dwconv3d_strided",
+                                  "warp_h_fp16", "warp_v_strided"])
+def test_cpu_wrappers_count_no_launch(case):
+    """On CPU tensors every wrapper takes its plain version, also for the
+    inputs that the CUDA route reshapes (odd C, strided, fp16)."""
+    for kernel in KERNELS:
+        kernel.reset_counts()
+    g = torch.Generator().manual_seed(0)
+    if case == "gem_strided_fp16":
+        x = torch.rand(2, 4, 3, 8, generator=g).half().transpose(1, 2)
+        assert gem_pool(x, torch.full((1,), 3.0)).shape == (2, 8)
+    elif case.startswith("dwconv3d"):
+        c = 5 if case == "dwconv3d_odd_c" else 8
+        x = torch.rand(1, 2, 4, 3, c, generator=g)
+        x = x if case == "dwconv3d_odd_c" else x.transpose(2, 3)
+        assert dwconv3d(x, torch.rand(3, 3, 3, 1, c, generator=g)).shape == x.shape
+    elif case == "warp_h_fp16":
+        img = torch.rand(2, 3, 8, generator=g).half()
+        out = resample_last_axis(img, torch.ones(2), torch.zeros(2, 3))
+        assert out.dtype == torch.float16
+    else:
+        img = torch.rand(2, 8, 3, generator=g).transpose(1, 2)
+        assert resample_columns(img, torch.ones(2), torch.zeros(2, 8)).shape == (2, 3, 8)
+    assert [k.launches for k in KERNELS] == [0, 0, 0]
+    assert all(not k.launches_by for k in KERNELS)

@@ -24,6 +24,7 @@ from ball_action_spotting_torch.ops.warp import (
     block_center_offsets,
     resample_columns,
     resample_last_axis,
+    wide_path,
 )
 
 ATOL = {"highest": 1e-5, "bfloat16": 4e-3}
@@ -136,3 +137,37 @@ def test_wrappers_validate_inputs_and_count_no_cpu_launch():
         resample_last_axis(img[0], torch.ones(1), torch.zeros(1, 16))  # rank
     with pytest.raises(ValueError):
         resample_last_axis(img, torch.ones(2), torch.zeros(2, 8), precision="fast")
+
+
+# (N, H, W), dtype, block, pass axis (2 = H, 1 = V), offset in elements,
+# whether csrc/warp.cu takes its 16-byte path
+@pytest.mark.parametrize("shape,dtype,block,axis,offset,wide", [
+    ((60, 736, 1280), torch.bfloat16, 32, 2, 0, True),   # the train step's H pass
+    ((60, 736, 1280), torch.bfloat16, 32, 1, 0, True),   # ... and V pass
+    ((60, 736, 1280), torch.float32, 32, 1, 0, True),
+    ((2, 5, 37), torch.bfloat16, 32, 2, 0, False),       # W 37: not whole vectors
+    ((2, 5, 37), torch.float32, 32, 1, 0, False),
+    ((2, 5, 64), torch.bfloat16, 32, 2, 1, False),       # a misaligned view
+    ((2, 5, 64), torch.float16, 32, 1, 1, False),
+    ((2, 5, 64), torch.bfloat16, 7, 1, 0, False),        # V: block 7 splits a vector
+    ((2, 5, 64), torch.bfloat16, 7, 2, 0, True),         # H: any block
+    ((2, 5, 64), torch.float32, 4, 1, 0, True),
+    ((1, 1, 65536), torch.float32, 32, 2, 0, False),     # H: a row past 227 KB
+])
+def test_wide_path_predicate(shape, dtype, block, axis, offset, wide):
+    flat = torch.zeros(int(np.prod(shape)) + offset, dtype=dtype)
+    assert wide_path(flat[offset:].view(shape), block, axis) is wide
+
+
+def test_fp16_image_matches_jax():
+    """An fp16 image keeps its dtype; JAX rounds its interpolation matrix to
+    fp16 and the port keeps it in float32, within the bf16 mode's bound."""
+    img, scales, offs, block = _inputs("scale_shear")
+    img16 = torch.from_numpy(img).half()
+    out = resample_last_axis(img16, torch.from_numpy(scales), torch.from_numpy(offs), block)
+    assert out.dtype == torch.float16
+    for i in range(img.shape[0]):
+        expected = _resample_last_axis(jnp.asarray(img16[i].float().numpy()).astype(jnp.float16),
+                                       jnp.float32(scales[i]), jnp.asarray(offs[i]), block)
+        np.testing.assert_allclose(out[i].float().numpy(), np.asarray(expected, np.float32),
+                                   atol=ATOL["bfloat16"])
