@@ -1,7 +1,7 @@
-"""Spotting-results and raw-prediction persistence (copy of the JAX
-package's ``core/spotting.py`` write side). ``results_spotting.json`` is the
-SoccerNet submission contract; field layout and ordering match the JAX
-writer exactly."""
+"""Spotting-results and raw-prediction persistence, and the ensemble blend
+(copy of the JAX package's ``core/spotting.py``). ``results_spotting.json``
+is the SoccerNet submission contract; field layout and ordering match the
+JAX writer exactly."""
 
 from __future__ import annotations
 
@@ -64,6 +64,10 @@ def write_game_spotting_results(
     return results_path
 
 
+def read_game_spotting_results(path: Path) -> dict:
+    return json.loads(Path(path).read_text())
+
+
 def save_raw_predictions(
     path: Path, frame_indexes: np.ndarray, raw_predictions: np.ndarray
 ) -> None:
@@ -81,3 +85,52 @@ def save_raw_predictions(
 def load_raw_predictions(path: Path) -> tuple[np.ndarray, np.ndarray]:
     with np.load(str(path)) as npz:
         return npz["frame_indexes"], npz["raw_predictions"]
+
+
+def blend_raw_predictions(
+    loaded: Sequence[tuple[np.ndarray, np.ndarray]],
+) -> tuple[np.ndarray, np.ndarray]:
+    """Arithmetic-mean ensemble of raw-prediction arrays over the UNION of
+    member frame ranges (reference ``scripts/ball_action/ensemble.py:18-35``):
+    members are summed into a dense timeline and divided by the member
+    count, so frames a member does not cover contribute zeros — exactly the
+    reference's accumulation (lines 28-32). Members with different windows
+    (e.g. a 15-frame stage-3 and a 33-frame stage-4 model) therefore blend
+    over ``[min(all indexes), max(all indexes)]``.
+
+    Deviation note: the reference's tail (lines 33-34) reuses the loop
+    variable ``frame_indexes`` after the loop, slicing/asserting against the
+    LAST member's range — which crashes on mixed-range ensembles (its real
+    recipe only blends same-window members, where this is equivalent to the
+    union). We return the union range, which is identical for same-window
+    members and well-defined otherwise."""
+    all_indexes = np.concatenate([fi for fi, _ in loaded])
+    lo, hi = int(all_indexes.min()), int(all_indexes.max())
+    unique = np.unique(all_indexes)
+    if len(unique) != hi - lo + 1:
+        # disjoint coverage = a stale/misaligned member, not a window-size
+        # difference (overlapping contiguous ranges always union to a
+        # contiguous range); silently zero-filling the gap would dilute
+        # every score — and the reference's assert would fail here too
+        raise ValueError(
+            "Ensemble members cover disjoint frame ranges "
+            f"({len(unique)} covered frames in span [{lo}, {hi}])"
+        )
+    # same-extent members over one video must cover IDENTICAL ranges (the
+    # range is fully determined by video length + window geometry): equal
+    # extents with shifted endpoints mean a stale/shifted member, which
+    # would otherwise blend silently and dilute edge scores. Genuine
+    # mixed-window ensembles (15- vs 33-frame stages) differ in extent.
+    spans = {(int(fi.min()), int(fi.max())) for fi, _ in loaded}
+    extents = {b - a for a, b in spans}
+    if len(extents) == 1 and len(spans) > 1:
+        raise ValueError(
+            f"Same-window ensemble members cover misaligned frame ranges: "
+            f"{sorted(spans)}"
+        )
+    num_classes = loaded[0][1].shape[1]
+    dense = np.zeros((hi - lo + 1, num_classes), dtype=np.float64)
+    for fi, rp in loaded:
+        dense[np.asarray(fi) - lo] += rp
+    dense /= len(loaded)
+    return np.arange(lo, hi + 1), dense

@@ -1,7 +1,7 @@
-"""Read side of the gray store: the decode-once ``<video>.gray`` file the
-JAX package's ``data/gray_store.py`` writes (24-byte header ``GRAYSTR1``,
-uint32 height, uint32 width, uint64 frame count, then raw uint8 frames),
-read here through a numpy memmap."""
+"""The gray store: the decode-once ``<video>.gray`` file of the JAX
+package's ``data/gray_store.py`` (24-byte header ``GRAYSTR1``, uint32
+height, uint32 width, uint64 frame count, then raw uint8 frames), written
+by ``write_gray_store`` and read through a numpy memmap."""
 
 from __future__ import annotations
 
@@ -14,6 +14,28 @@ from ball_action_spotting_torch.data.video import FrameSource
 
 _HEADER = 24
 _MAGIC = b"GRAYSTR1"
+
+
+def write_gray_store(path: Path, frames_iter, height: int, width: int,
+                     frame_count: int) -> None:
+    """Write an iterable of (H, W) uint8 frames into a store file."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(_MAGIC)
+        f.write(np.uint32(height).tobytes())
+        f.write(np.uint32(width).tobytes())
+        f.write(np.uint64(frame_count).tobytes())
+        written = 0
+        for frame in frames_iter:
+            frame = np.ascontiguousarray(frame, dtype=np.uint8)
+            if frame.shape != (height, width):
+                raise ValueError(f"frame {written} has shape {frame.shape}, "
+                                 f"expected {(height, width)}")
+            f.write(frame.tobytes())
+            written += 1
+    if written != frame_count:
+        raise ValueError(f"wrote {written} frames to {path}, the header says {frame_count}")
 
 
 class GrayStoreSource(FrameSource):

@@ -1,4 +1,4 @@
 from ball_action_spotting_torch.domains.base import Domain, PostprocessParams
-from ball_action_spotting_torch.domains import ball
+from ball_action_spotting_torch.domains import action, ball
 
-__all__ = ["Domain", "PostprocessParams", "ball"]
+__all__ = ["Domain", "PostprocessParams", "action", "ball"]

@@ -6,7 +6,9 @@ the JAX package's ``scripts/ball_action/train.py``).
 
 Loads ``NAME`` from the port's configs (``paths.configs_dir()``), snapshots
 the config into ``data/ball_action/experiments/NAME`` and trains each fold
-into ``fold_K`` there, resolving each stage's pretrain checkpoint.
+into ``fold_K`` there, resolving each stage's pretrain checkpoint: the best
+``.ckpt`` of an action experiment (stage 3) or of the same fold of a ball
+experiment (stage 4).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import argparse
 from pathlib import Path
 from pprint import pprint
 
-from ball_action_spotting_torch.domains import ball
+from ball_action_spotting_torch.domains import action, ball
 from ball_action_spotting_torch.train.checkpoint import snapshot_experiment
 from ball_action_spotting_torch.train.pipeline import resolve_stage_pretrain, train_stage
 from ball_action_spotting_torch.utils.experiments import load_experiment_config
@@ -47,9 +49,7 @@ def main(argv=None) -> None:
         train_games = [g for f in train_folds for g in ball.fold2games[f]]
         print(f"Val fold: {fold}, train folds: {train_folds}")
         print(f"Val games: {val_games}, train games: {train_games}")
-        # the action domain is not ported yet: a stage that pretrains from
-        # an action experiment raises here
-        pretrain = resolve_stage_pretrain(config, domain, fold)
+        pretrain = resolve_stage_pretrain(config, domain, fold, action.DOMAIN)
         best = train_stage(config, domain, experiments_dir / f"fold_{fold}", train_games,
                            val_games, game2fold=ball.game2fold, pretrain_variables=pretrain,
                            seed=args.seed + fold, device=args.device)

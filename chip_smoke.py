@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): kernels, the
-flagship chunked inference path and the flagship training path.
+flagship chunked inference path, the flagship training path, and the rest
+of the four-stage recipe with its evaluation.
 
     python3 chip_smoke.py
 
@@ -44,10 +45,27 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    sampled augmentation) on the card against the same step on the CPU.
    Prints ms per train step, samples/s, augmentation ms, the device's idle
    share and top kernels of a step (torch.profiler) and peak memory.
-5. Prints the ``kernels`` JSON line (one row per kernel and main path:
+5. Recipe and evaluation, at the flagship's full width on synthetic games
+   written as gray stores (one ball game, fold 0's, and one action game;
+   two halves of 160 frames at 1280x720 each): the training phase's best
+   checkpoint is stage 1, whose fold-0 predictions (ball predict CLI) are
+   the out-of-fold hard negatives of stage 3. Stage 2 trains
+   ``action_sampling_weights_002`` (``pretrained=False``, 4 optimizer steps,
+   1 val step) through the action train CLI's path; stage 3 trains
+   ``ball_tuning_001`` (4 steps) from the action checkpoint through
+   ``resolve_stage_pretrain``, every tensor but the classifier loaded. Its
+   best checkpoint predicts the ball game (TTA on) with the depthwise kernel
+   and without; each is scored at "at1" by both algorithms, against the
+   game's labels and against labels at the kernel path's own spots (1.0 for
+   the matcher, ≥ 0.99 official, the default path within ``MAP_ATOL``);
+   the two are ensembled and zipped, and the zip must score as its
+   directory. The action checkpoint predicts its game (TTA off, kernel on),
+   scored at "tight". Each path runs with the launch counters set to 0.
+6. Prints the ``kernels`` JSON line (one row per kernel and main path:
    GeM on the inference and on the training path, the depthwise conv, and
-   the warp's H and V passes, each with its own launches and bound), then
-   the device line last.
+   the warp's H and V passes, each with its own launches and bound, and
+   ``launches_by_path``: the recipe phase's paths of the same kind, each of
+   which must launch it), then the device line last.
 
 Float32 comparisons run with TF32 off (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32`` set False): cuDNN would
@@ -58,6 +76,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -68,6 +88,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ball_action_spotting_torch.cli import (
+    action_evaluate,
+    action_predict,
+    action_train,
+    ball_ensemble,
+)
+from ball_action_spotting_torch.convert import flax_tree_to_state_dict
 from ball_action_spotting_torch.core.indexes import StackIndexesGenerator
 from ball_action_spotting_torch.core.postprocess import raw_predictions_to_actions
 from ball_action_spotting_torch.core.sampling import ball_sampling_weights
@@ -79,8 +106,11 @@ from ball_action_spotting_torch.data import (
     ValClipDataset,
     make_synthetic_video_data,
 )
+from ball_action_spotting_torch.data.gray_store import write_gray_store
 from ball_action_spotting_torch.data.video import SyntheticSource
-from ball_action_spotting_torch.domains import ball
+from ball_action_spotting_torch.domains import action, ball
+from ball_action_spotting_torch.eval.soccernet_map import evaluate_games
+from ball_action_spotting_torch.eval.submission import make_submission_zip
 from ball_action_spotting_torch.models import build_model, init_train_weights, init_weights
 from ball_action_spotting_torch.models.effnetv2 import EFFNETV2_ARCHS, BatchNormAct, BlockDef
 from ball_action_spotting_torch.ops import KERNELS
@@ -100,12 +130,16 @@ from ball_action_spotting_torch.ops.dwconv3d import (
 )
 from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_reference
 from ball_action_spotting_torch.ops.losses import FocalLoss
+from ball_action_spotting_torch.predict.__main__ import main as ball_predict
+from ball_action_spotting_torch.predict.pipeline import predict_games
 from ball_action_spotting_torch.predict.streaming import ChunkedVideoPredictor
-from ball_action_spotting_torch.train.checkpoint import get_best_checkpoint_path
+from ball_action_spotting_torch.train.checkpoint import get_best_checkpoint_path, load_checkpoint
 from ball_action_spotting_torch.train.engine import Trainer
 from ball_action_spotting_torch.train.optim import build_optimizer
+from ball_action_spotting_torch.train.pipeline import resolve_stage_pretrain, train_stage
 from ball_action_spotting_torch.train.state import TrainState
 from ball_action_spotting_torch.train.steps import make_train_step, normalize_frames
+from ball_action_spotting_torch.utils.experiments import load_experiment_config
 from ball_action_spotting_torch.utils.recipe import spotting_recipe
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
@@ -227,6 +261,19 @@ WARP_EDGE_CASES = [
     ("rows", (1, 1, 64), torch.float32, 32, 1.0, 0.3, "highest", 0),
     ("rows", (3, 37, 1280), torch.float32, 32, 1.03, -3.0, "highest", 0),
 ]
+# Recipe phase: one ball game (fold 0's) and one action game, two halves of
+# 160 synthetic 1280x720 frames each (0.59 GB of gray stores). Ball events
+# every 20 frames; one visible action per half (the val split is the train
+# game: 2 val samples, one val step) beside "not shown" ones, which the
+# visibility filter drops from training and the unshown split scores.
+RECIPE_FRAMES = 160
+VIDEO_HEIGHT = 720  # SoccerNet's 720p, padded to HEIGHT by the frames processor
+BALL_EVENTS = {half: {f: (ball.classes[k % 2], None) for k, f in enumerate(range(20, 160, 20))}
+               for half in (1, 2)}
+ACTION_EVENTS = {1: {40: ("Goal", "visible"), 80: ("Corner", "not shown"),
+                     120: ("Red card", "not shown")},
+                 2: {60: ("Yellow card", "visible"), 100: ("Throw-in", "not shown")}}
+MAP_ATOL = 0.02  # a_mAP@1 kernel vs default path, as PRED_BF16_ATOL for their sigmoids
 TINY_ARCH = (8, (BlockDef("cn", 1, 3, 1, 1, 8), BlockDef("er", 1, 3, 2, 2, 8),
                  BlockDef("er", 1, 3, 2, 2, 16), BlockDef("ir", 1, 3, 2, 2, 16, 0.25),
                  BlockDef("ir", 1, 3, 2, 2, 24, 0.25)), 1.0, 1.0)
@@ -874,7 +921,7 @@ def train_main_path(dev, tmp: Path) -> dict:
     log({"check": "predict_from_trained_checkpoint", "checkpoint": ckpt.name,
          "predictions": len(idx)})
     return {"launches": {**launches, "warp_H": warp_passes["H"], "warp_V": warp_passes["V"]},
-            "trainer": trainer, "losses": losses}
+            "trainer": trainer, "losses": losses, "checkpoint": ckpt}
 
 
 def learning_check(dev) -> None:
@@ -1004,11 +1051,15 @@ def train_numbers(dev, trainer, card: str) -> dict:
     return row
 
 
-def training(dev, card: str) -> dict:
+def training(dev, card: str, keep_dir: Path) -> dict:
+    """The training phase; the best checkpoint is copied into ``keep_dir``
+    (the stage-1 experiment of the recipe phase)."""
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         main_path = train_main_path(dev, Path(tmp))
         log({"phase": "train_main_path_done", "seconds": time.perf_counter() - t0})
+        keep_dir.mkdir(parents=True, exist_ok=True)
+        shutil.copy(main_path["checkpoint"], keep_dir / main_path["checkpoint"].name)
         t0 = time.perf_counter()
         train_numbers(dev, main_path["trainer"], card)
         log({"phase": "train_numbers_done", "seconds": time.perf_counter() - t0})
@@ -1019,6 +1070,243 @@ def training(dev, card: str) -> dict:
     f32_step_card_vs_cpu(dev)
     log({"phase": "train_checks_done", "seconds": time.perf_counter() - t0})
     return main_path["launches"]
+
+
+# --------------------------------------------------------------- phase 5 ---
+
+def path_launches() -> dict:
+    """The kernels' counts since the last ``reset_counts``, the warp's by pass."""
+    return {**{k.name: k.launches for k in KERNELS},
+            "warp_H": warp_ops.KERNEL.launches_by.get("H", 0),
+            "warp_V": warp_ops.KERNEL.launches_by.get("V", 0)}
+
+
+def counted(name: str, launches: dict, fn):
+    """Run ``fn`` with the launch counters set to 0 just before; record its
+    path's counts under ``name``."""
+    for k in KERNELS:
+        k.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches[name] = path_launches()
+    return out
+
+
+def write_recipe_game(game_dir: Path, label_file: str, events: dict, seed: int) -> None:
+    """Two halves of ``RECIPE_FRAMES`` synthetic WIDTH×VIDEO_HEIGHT frames as gray
+    stores (``<half>_720p.mkv.gray``, a bright square near each event) with
+    their info sidecars, and the label file: ``events`` maps each half to
+    {frame: (label, visibility or None)}."""
+    classes = sorted({label for half in events.values() for label, _ in half.values()})
+    annotations = []
+    for half, half_events in events.items():
+        src = SyntheticSource(num_frames=RECIPE_FRAMES, height=VIDEO_HEIGHT, width=WIDTH,
+                              seed=seed + half,
+                              events={f: classes.index(lab) for f, (lab, _) in half_events.items()})
+        video = game_dir / f"{half}_720p.mkv"
+        write_gray_store(Path(str(video) + ".gray"),
+                         (src.fetch_frame(i) for i in range(RECIPE_FRAMES)), VIDEO_HEIGHT,
+                         WIDTH, RECIPE_FRAMES)
+        Path(str(video) + ".info.json").write_text(json.dumps(
+            dict(frame_count=RECIPE_FRAMES, fps=25.0, width=WIDTH, height=VIDEO_HEIGHT)))
+        for frame, (label, visibility) in half_events.items():
+            seconds = frame // 25
+            ann = {"gameTime": f"{half} - {seconds // 60:02d}:{seconds % 60:02d}",
+                   "label": label, "position": str(frame * 40)}
+            if visibility:
+                ann["visibility"] = visibility
+            annotations.append(ann)
+    (game_dir / label_file).write_text(json.dumps({"annotations": annotations}))
+
+
+def recipe_config(config: dict) -> dict:
+    """A recipe config cut in depth only: 1 warmup + 1 train epoch of 8
+    samples at batch 4 (4 optimizer steps), no ImageNet weights."""
+    config = dict(config, train_epoch_size=8, num_epochs=[1, 1])
+    name, kwargs = config["argus_params"]["nn_module"]
+    config["argus_params"] = dict(config["argus_params"],
+                                  nn_module=(name, dict(kwargs, pretrained=False)))
+    return config
+
+
+def check_map(name: str, results: dict) -> float:
+    values = [results[k] for k in ("a_mAP", "a_mAP_visible", "a_mAP_unshown")
+              if results[k] is not None]
+    if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in values):
+        fail(f"{name}: an a_mAP is not finite in [0, 1]: {values}")
+    return results["a_mAP"]
+
+
+def stage2_action(dev, launches: dict) -> None:
+    """Stage 2: ``action_sampling_weights_002`` through the action train
+    CLI's path (``cli/action_train.py::train_experiment``)."""
+    config = recipe_config(load_experiment_config("action_sampling_weights_002", action.DOMAIN))
+    best = counted("action_train", launches, lambda: action_train.train_experiment(
+        "action_sampling_weights_002", config, device=dev))
+    got = launches["action_train"]
+    losses = [best.get("train_loss"), best.get("val_loss")]
+    ckpt = get_best_checkpoint_path(action.DOMAIN.experiments_dir / "action_sampling_weights_002")
+    _, params = load_checkpoint(ckpt)
+    classes = params["nn_module"][1]["num_classes"]
+    log({"phase": "stage2_action_train", "launches": got, "losses": losses,
+         "num_classes": classes, "checkpoint": ckpt.name})
+    if classes != 15 or not all(x is not None and math.isfinite(x) for x in losses):
+        fail(f"action training: {classes} classes, losses {losses}")
+    if not (got["warp_H"] == got["warp_V"] == 4 and got["gem"] >= 4):
+        fail(f"action training did not launch the warp per step and GeM: {got}")
+
+
+def stage3_ball(dev, game: str, launches: dict) -> None:
+    """Stage 3: ``ball_tuning_001`` from the action checkpoint through
+    ``resolve_stage_pretrain``, its hard negatives read from the stage-1
+    predictions of the game; every tensor but the classifier must start at
+    the action checkpoint's value."""
+    config = recipe_config(load_experiment_config("ball_tuning_001", ball.DOMAIN))
+    pretrain = resolve_stage_pretrain(config, ball.DOMAIN, 0, action.DOMAIN)
+    save_dir = ball.DOMAIN.experiments_dir / "ball_tuning_001" / "fold_0"
+    start = Trainer(config, list(ball.classes), save_dir, device=dev).init_state(pretrain)
+    start = {k: v.detach().cpu() for k, v in start.model.state_dict().items()}
+    action_state = flax_tree_to_state_dict(pretrain)
+    skipped = sorted(k for k in start if start[k].shape != action_state[k].shape)
+    differ = [k for k in start if k not in skipped
+              and not torch.equal(start[k], action_state[k].to(start[k].dtype))]
+    if skipped != ["classifier.bias", "classifier.weight"] or differ:
+        fail(f"stage 3 transfer: skipped {skipped}, loaded but different {differ[:5]}")
+    torch.cuda.empty_cache()
+    best = counted("stage3_train", launches, lambda: train_stage(
+        config, ball.DOMAIN, save_dir, [game], [game], game2fold=ball.game2fold,
+        pretrain_variables=pretrain, device=dev))
+    got = launches["stage3_train"]
+    log({"phase": "stage3_ball_train", "launches": got, "skipped_by_shape": skipped,
+         "loaded": len(start) - len(skipped), "train_loss": best.get("train_loss"),
+         "val_average_precision": best.get("val_average_precision")})
+    if not math.isfinite(best.get("train_loss", math.nan)):
+        fail(f"stage 3 loss not finite: {best}")
+    if not (got["warp_H"] == got["warp_V"] == 4 and got["gem"] >= 4):
+        fail(f"stage 3 did not launch the warp per step and GeM: {got}")
+
+
+def labels_at_spots(spotting_path: Path, root: Path, game: str) -> Path:
+    """A label tree whose ``Labels-ball.json`` holds one annotation at each
+    spot of a spotting JSON."""
+    spots = json.loads(spotting_path.read_text())["predictions"]
+    (root / game).mkdir(parents=True)
+    (root / game / ball.DOMAIN.label_file).write_text(json.dumps({"annotations": [
+        {k: p[k] for k in ("gameTime", "label", "position")} for p in spots]}))
+    return root
+
+
+def ball_predict_evaluate(dev, game: str, work: Path, launches: dict) -> dict:
+    """Stage 3's best ``.ckpt`` predicted with TTA on, the depthwise kernel
+    on and off; each scored at "at1" by both algorithms; the two ensembled,
+    zipped, and the zip scored again."""
+    ckpt = get_best_checkpoint_path(ball.DOMAIN.experiments_dir / "ball_tuning_001" / "fold_0")
+    preds = ball.DOMAIN.predictions_dir
+    kernel_dir = preds / "ball_tuning_001" / "cv" / "fold_0"
+    default_dir = preds / "ball_tuning_001_default" / "cv" / "fold_0"
+    counted("eval_predict", launches, lambda: predict_games(
+        ckpt, [game], ball.DOMAIN, kernel_dir, tta=True, device=dev, dw3d_use_kernel=True))
+    predict_games(ckpt, [game], ball.DOMAIN, default_dir, tta=True, device=dev)
+    got = launches["eval_predict"]
+    if not (got["gem"] > 0 and got["dwconv3d"] > 0):
+        fail(f"ball predict did not launch GeM and dwconv3d: {got}")
+
+    def score(labels_root, pred_root, algorithm):
+        return evaluate_games(labels_root, pred_root, [game], ball.DOMAIN, metric="at1",
+                              algorithm=algorithm)
+
+    spots = labels_at_spots(kernel_dir / game / "results_spotting.json", work / "spots", game)
+    out = {}
+    for algorithm in ("official", "matcher"):
+        out[f"kernel_{algorithm}"] = check_map("kernel path", score(
+            ball.DOMAIN.soccernet_dir, kernel_dir, algorithm))
+        out[f"default_{algorithm}"] = check_map("default path", score(
+            ball.DOMAIN.soccernet_dir, default_dir, algorithm))
+        out[f"kernel_at_own_spots_{algorithm}"] = check_map(
+            "kernel path at its spots", score(spots, kernel_dir, algorithm))
+        out[f"default_at_kernel_spots_{algorithm}"] = check_map(
+            "default path at the kernel's spots", score(spots, default_dir, algorithm))
+    if out["kernel_at_own_spots_matcher"] != 1.0 or out["kernel_at_own_spots_official"] < 0.99:
+        fail(f"labels at the kernel path's own spots do not score 1: {out}")
+    for algorithm in ("official", "matcher"):
+        gap = abs(out[f"kernel_at_own_spots_{algorithm}"]
+                  - out[f"default_at_kernel_spots_{algorithm}"])
+        if not gap <= MAP_ATOL:
+            fail(f"a_mAP@1 kernel vs default path ({algorithm}): |diff| {gap} > {MAP_ATOL}")
+
+    ens = "ball_tuning_001,ball_tuning_001_default"
+    ball_ensemble.main(["--experiments", ens, "--folds", "0"])
+    ens_dir = preds / ens / "cv" / "fold_0"
+    archive = make_submission_zip(ens_dir, games=[game])
+    for algorithm in ("official", "matcher"):
+        from_dir = score(ball.DOMAIN.soccernet_dir, ens_dir, algorithm)
+        from_zip = score(ball.DOMAIN.soccernet_dir, archive, algorithm)
+        if from_zip != from_dir:
+            fail(f"the submission zip scores otherwise than its directory ({algorithm})")
+        out[f"ensemble_{algorithm}"] = check_map("ensemble", from_dir)
+    out["spots_kernel_path"] = len(json.loads(
+        (kernel_dir / game / "results_spotting.json").read_text())["predictions"])
+    return out
+
+
+def action_predict_evaluate(dev, launches: dict) -> dict:
+    counted("action_predict", launches, lambda: action_predict.predict_split(
+        "action_sampling_weights_002", "val", device=dev, dw3d_use_kernel=True))
+    got = launches["action_predict"]
+    if not (got["gem"] > 0 and got["dwconv3d"] > 0):
+        fail(f"action predict did not launch GeM and dwconv3d: {got}")
+    out = {}
+    for algorithm in ("official", "matcher"):
+        results = action_evaluate.evaluate_split("action_sampling_weights_002", "val", algorithm)
+        out[f"tight_{algorithm}"] = check_map("action predictions", results)
+        out[f"tight_visible_{algorithm}"] = results["a_mAP_visible"]
+        out[f"tight_unshown_{algorithm}"] = results["a_mAP_unshown"]
+    return out
+
+
+def recipe_and_evaluation(dev, card: str, work: Path) -> dict:
+    """Stages 2 and 3 of the recipe at full width, then ball and action
+    predictions scored, ensembled and zipped, on synthetic games in
+    ``work`` (whose stage-1 checkpoint the training phase left there).
+    Returns the launches of each path."""
+    env = {"BAS_TPU_WORKDIR": str(work), "BAS_TPU_ACTION_SPLITS": str(work / "splits")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    launches: dict = {}
+    try:
+        t0 = time.perf_counter()
+        game, action_game = ball.fold2games[0][0], "synthetic/action_game"
+        write_recipe_game(ball.DOMAIN.soccernet_dir / game, ball.DOMAIN.label_file,
+                          BALL_EVENTS, seed=20)
+        write_recipe_game(action.DOMAIN.soccernet_dir / action_game, action.DOMAIN.label_file,
+                          ACTION_EVENTS, seed=30)
+        (work / "splits").mkdir()
+        for split in ("train", "val"):
+            (work / "splits" / f"{split}.json").write_text(json.dumps([action_game]))
+        store_gb = sum(p.stat().st_size for p in work.rglob("*.gray")) / 1e9
+        log({"phase": "recipe_data", "store_gb": store_gb,
+             "seconds": time.perf_counter() - t0})
+
+        # stage 1's out-of-fold predictions of the game, which stage 3's
+        # hard-negative sampling reads: the ball predict CLI on the fold
+        ball_predict(["--experiment", "sampling_weights_001", "--folds", "0", "--device", str(dev)])
+        stage2_action(dev, launches)
+        torch.cuda.empty_cache()
+        stage3_ball(dev, game, launches)
+        torch.cuda.empty_cache()
+        ball_map = ball_predict_evaluate(dev, game, work, launches)
+        action_map = action_predict_evaluate(dev, launches)
+        seconds = time.perf_counter() - t0
+        log({"phase": "recipe_eval", "card": card, "a_mAP_at1_ball": ball_map,
+             "a_mAP_tight_action": action_map, "map_atol": MAP_ATOL, "launches": launches})
+        log({"phase": "recipe_eval_done", "seconds": seconds})
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return launches
 
 
 def main() -> None:
@@ -1058,31 +1346,46 @@ def main() -> None:
     t0 = time.perf_counter()
     launches = flagship(dev, card)
     log({"phase": "inference_done", "seconds": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    train_launches = training(dev, card)
-    log({"phase": "training_done", "seconds": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory() as work:
+        work = Path(work)
+        t0 = time.perf_counter()
+        train_launches = training(dev, card, work / "data" / "ball_action" / "experiments"
+                                  / "sampling_weights_001" / "fold_0")
+        log({"phase": "training_done", "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+        recipe_launches = recipe_and_evaluation(dev, card, work)
 
     # one row per kernel and main path; the warp's H and V passes, two
     # launches of one kernel at different shapes and access patterns, each
-    # have their own row, launches and bound
+    # have their own row, launches and bound. ``launches`` is the row's main
+    # path; ``launches_by_path`` adds the recipe phase's paths of the same
+    # kind (inference or training), each counted from 0.
+    inference_paths = {"inference": launches, "eval_predict": recipe_launches["eval_predict"],
+                       "action_predict": recipe_launches["action_predict"]}
+    training_paths = {"train": train_launches, "action_train": recipe_launches["action_train"],
+                      "stage3_train": recipe_launches["stage3_train"]}
     sources = {
         "gem_pool_inference": ("gem", "ball_action_spotting_torch/csrc/gem.cu",
-                               "ball_action_spotting_tpu/ops/pallas_gem.py:64", launches),
+                               "ball_action_spotting_tpu/ops/pallas_gem.py:64", inference_paths),
         "gem_pool_train": ("gem", "ball_action_spotting_torch/csrc/gem.cu",
-                           "ball_action_spotting_tpu/ops/pallas_gem.py:64", train_launches),
+                           "ball_action_spotting_tpu/ops/pallas_gem.py:64", training_paths),
         "dwconv3d": ("dwconv3d", "ball_action_spotting_torch/csrc/dwconv3d.cu",
-                     "ball_action_spotting_tpu/ops/pallas_dwconv3d.py:105", launches),
+                     "ball_action_spotting_tpu/ops/pallas_dwconv3d.py:105", inference_paths),
         "warp_resample_h": ("warp_H", "ball_action_spotting_torch/csrc/warp.cu",
-                            "ball_action_spotting_tpu/ops/pallas_warp.py:96", train_launches),
+                            "ball_action_spotting_tpu/ops/pallas_warp.py:96", training_paths),
         "warp_resample_v": ("warp_V", "ball_action_spotting_torch/csrc/warp.cu",
-                            "ball_action_spotting_tpu/ops/pallas_warp.py:96", train_launches),
+                            "ball_action_spotting_tpu/ops/pallas_warp.py:96", training_paths),
     }
     kernels = []
-    for name, (kernel, source, replaces, path_launches) in sources.items():
+    for name, (kernel, source, replaces, paths) in sources.items():
         row = rows[name]
+        by_path = {path: counts[kernel] for path, counts in paths.items()}
+        if not all(n > 0 for n in by_path.values()):
+            fail(f"{name} was not launched on every path it runs on: {by_path}")
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": path_launches[kernel], "max_abs_err": row["max_abs_diff"],
+            "launches": by_path[next(iter(paths))], "launches_by_path": by_path,
+            "max_abs_err": row["max_abs_diff"],
             "ms": row["kernel_ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
