@@ -1,8 +1,10 @@
 """Ball-action prediction CLI: per-fold CV or challenge whole-video
-inference with the port's chunked engine, hflip TTA on.
+inference, hflip TTA on, with the chunked engine (default) or the per-frame
+streaming engine.
 
     python -m ball_action_spotting_torch.predict --experiment NAME \\
-        [--folds 0,1] [--challenge] [--use_saved_predictions] [--device cuda]
+        [--folds 0,1] [--challenge] [--use_saved_predictions] \\
+        [--engine chunked|streaming] [--device cuda]
 
 Reads the best ``.ckpt`` of ``data/ball_action/experiments/NAME/fold_K``
 (the files the JAX training CLI writes) and writes the raw npz and
@@ -15,7 +17,7 @@ from __future__ import annotations
 import argparse
 
 from ball_action_spotting_torch.domains import ball
-from ball_action_spotting_torch.predict.pipeline import predict_games
+from ball_action_spotting_torch.predict.pipeline import ENGINES, predict_games
 from ball_action_spotting_torch.train.checkpoint import get_best_checkpoint_path
 
 RESOLUTION = "720p"
@@ -28,6 +30,7 @@ def parse_arguments(argv=None):
     parser.add_argument("--folds", default="all", type=str)
     parser.add_argument("--challenge", action="store_true")
     parser.add_argument("--use_saved_predictions", action="store_true")
+    parser.add_argument("--engine", default="chunked", choices=ENGINES)
     parser.add_argument("--device", default="cuda", type=str)
     return parser.parse_args(argv)
 
@@ -41,7 +44,7 @@ def predict_fold(args, fold: int, domain) -> None:
     split = "challenge" if args.challenge else "cv"
     games = ball.challenge_games if args.challenge else ball.fold2games[fold]
     prediction_dir = domain.predictions_dir / args.experiment / split / f"fold_{fold}"
-    predict_games(model_path, games, domain, prediction_dir, tta=TTA,
+    predict_games(model_path, games, domain, prediction_dir, engine=args.engine, tta=TTA,
                   use_saved=args.use_saved_predictions, resolution=RESOLUTION,
                   device=args.device)
 

@@ -1,8 +1,9 @@
 """Whole-experiment prediction pipeline (port of the JAX package's
 ``predict/pipeline.py``, single device): per game and half, raw per-frame
 sigmoid predictions saved as npz, then the peak postprocess, then the game's
-``results_spotting.json``. Not ported yet: the streaming engine, the
-multi-device options and the fused multi-fold engine."""
+``results_spotting.json``. The engine is selectable: the chunked engine
+for offline throughput (default) or the per-frame streaming engine. Not
+ported yet: the multi-device options and the fused multi-fold engine."""
 
 from __future__ import annotations
 
@@ -22,16 +23,25 @@ from ball_action_spotting_torch.data.video import open_source
 from ball_action_spotting_torch.domains.base import Domain
 from ball_action_spotting_torch.predict.streaming import (
     ChunkedVideoPredictor,
+    PredictorBase,
+    StreamingPredictor,
+    get_raw_predictions,
     iter_source_frames,
 )
 
-
-def make_predictor(model_path: Path, tta: bool = False, **kwargs) -> ChunkedVideoPredictor:
-    """The chunked engine, the port's one engine so far."""
-    return ChunkedVideoPredictor(model_path, tta=tta, **kwargs)
+ENGINES = ("chunked", "streaming")
 
 
-def predict_video(predictor: Optional[ChunkedVideoPredictor], video_data: dict,
+def make_predictor(model_path: Path, engine: str = "chunked", tta: bool = False,
+                   **kwargs) -> PredictorBase:
+    if engine == "chunked":
+        return ChunkedVideoPredictor(model_path, tta=tta, **kwargs)
+    if engine == "streaming":
+        return StreamingPredictor(model_path, tta=tta, **kwargs)
+    raise ValueError(f"Unknown engine {engine!r}")
+
+
+def predict_video(predictor: Optional[PredictorBase], video_data: dict,
                   raw_predictions_path: Path, use_saved: bool = False):
     """→ (frame_indexes, raw) for one half; saves or loads the raw npz."""
     if use_saved:
@@ -42,8 +52,12 @@ def predict_video(predictor: Optional[ChunkedVideoPredictor], video_data: dict,
         return load_raw_predictions(raw_predictions_path)
     source = open_source(video_data)
     try:
-        frame_indexes, raw = predictor.predict_video(
-            iter_source_frames(source), video_data["frame_count"])
+        if isinstance(predictor, ChunkedVideoPredictor):
+            frame_indexes, raw = predictor.predict_video(
+                iter_source_frames(source), video_data["frame_count"])
+        else:
+            frame_indexes, raw = get_raw_predictions(
+                predictor, source, video_data["frame_count"])
     finally:
         source.close()
     save_raw_predictions(raw_predictions_path, np.asarray(frame_indexes), raw)
@@ -51,7 +65,7 @@ def predict_video(predictor: Optional[ChunkedVideoPredictor], video_data: dict,
     return frame_indexes, raw
 
 
-def predict_game(predictor: Optional[ChunkedVideoPredictor], game: str, domain: Domain,
+def predict_game(predictor: Optional[PredictorBase], game: str, domain: Domain,
                  prediction_dir: Path, resolution: str = "720p",
                  use_saved: bool = False, video_info_fn=None) -> None:
     video_info_fn = video_info_fn or cached_video_info
@@ -71,15 +85,16 @@ def predict_game(predictor: Optional[ChunkedVideoPredictor], game: str, domain: 
 
 
 def predict_games(model_path: Optional[Path], games: Sequence[str], domain: Domain,
-                  prediction_dir: Path, tta: bool = False,
+                  prediction_dir: Path, engine: str = "chunked", tta: bool = False,
                   use_saved: bool = False, resolution: str = "720p",
                   video_info_fn=None, device: str = "cuda", **predictor_kwargs) -> None:
-    """Predict every game with one model through the chunked engine;
-    ``predictor_kwargs`` go to it (``dtype``, ``chunk_size``,
-    ``dw3d_use_kernel`` ...)."""
+    """Predict every game with one model through ``engine``;
+    ``predictor_kwargs`` go to it (``dtype``, ``dw3d_use_kernel``, the
+    chunked engine's ``chunk_size`` ...)."""
     predictor = None
     if not use_saved:
-        predictor = make_predictor(model_path, tta=tta, device=device, **predictor_kwargs)
+        predictor = make_predictor(model_path, engine=engine, tta=tta, device=device,
+                                   **predictor_kwargs)
     for game in games:
         print("Predict game:", game)
         predict_game(predictor, game, domain, prediction_dir, resolution=resolution,

@@ -1,20 +1,35 @@
-"""Full-video chunked inference engine (port of the JAX package's
+"""Full-video inference engines (port of the JAX package's
 ``predict/streaming.py``: ``load_inference_variables``, ``pad_frame``,
-``ChunkedVideoPredictor``, ``run_chunk_loop`` and ``iter_source_frames``).
+``StreamingPredictor``, ``get_raw_predictions``, ``ChunkedVideoPredictor``,
+``run_chunk_loop`` and ``iter_source_frames``).
 
-Per chunk of N prediction indexes the engine runs the whole pipeline on the
-device: uint8 frames → channels-last stack assembly → u8 → compute dtype,
-then /255 (+ hflip TTA) → ``forward_2d_nhwc`` over the stacks → window
-slices → ``forward_3d_head`` → float32 sigmoid. The host uploads each frame
-once per chunk as one uint8 array; a carry rides along on the device
-between chunks: by default (``carry_features=True``) the overlap stacks'
-encoded features plus a short uint8 frame tail, seeded once by a bootstrap
-program from the first ``overlap`` frames; with ``carry_features=False`` the
-``overlap`` raw frames, whose stacks are then encoded again. Both give the
-same predictions.
+Two engines over the same split forward:
 
-Not ported yet: the per-frame ``StreamingPredictor``, the multi-device
-``mesh``/``spatial`` options, the space-to-depth stem and int8 convs.
+- ``StreamingPredictor``, the per-frame streaming engine: a frame dict and a
+  stack-feature cache, so that in the steady state one new stack goes
+  through the 2D encoder per frame (``PredictorBase.fwd2d``) and one window
+  through the 3D head (``PredictorBase.fwd3d_head``). Suited to live use;
+  the serving engines of ``predict/multistream.py`` batch the same two
+  programs across streams.
+- ``ChunkedVideoPredictor``, the offline engine. Per chunk of N prediction
+  indexes it runs the whole pipeline on the device: uint8 frames →
+  channels-last stack assembly → u8 → compute dtype, then /255 (+ hflip
+  TTA) → ``forward_2d_nhwc`` over the stacks → window slices →
+  ``forward_3d_head`` → float32 sigmoid. The host uploads each frame once
+  per chunk as one uint8 array; a carry rides along on the device between
+  chunks: by default (``carry_features=True``) the overlap stacks' encoded
+  features plus a short uint8 frame tail, seeded once by a bootstrap
+  program from the first ``overlap`` frames; with ``carry_features=False``
+  the ``overlap`` raw frames, whose stacks are then encoded again. Both give
+  the same predictions.
+
+The two engines keep the JAX package's orders of operations, which differ:
+the streaming programs normalize in float32 and pool the concatenated
+stack map; the chunked program normalizes in the compute dtype and pools
+per stack.
+
+Not ported yet: the multi-device ``mesh``/``spatial`` options, the
+space-to-depth stem and int8 convs.
 """
 
 from __future__ import annotations
@@ -31,6 +46,11 @@ from ball_action_spotting_torch.device import resolve_device
 from ball_action_spotting_torch.models import build_model
 from ball_action_spotting_torch.models.fold_bn import fold_bn_state_dict
 from ball_action_spotting_torch.train.checkpoint import resolve_pretrain_variables
+
+
+def _batched(seq, size):
+    for i in range(0, len(seq), size):
+        yield tuple(seq[i : i + size])
 
 
 def pad_offsets(image_size, height, width) -> tuple[int, int]:
@@ -69,7 +89,9 @@ class PredictorBase:
     that build them in memory, ``weights=(state_dict, params)`` with an
     unfolded port state_dict. ``device`` defaults to ``"cuda"`` and must
     exist; ``dtype`` is the compute dtype (bfloat16 by default, as on the
-    TPU)."""
+    TPU). ``dw3d_use_kernel`` routes the 3D blocks' depthwise conv through
+    the hand-written kernel; by default it does so on a CUDA device, and
+    ``False`` keeps the grouped ``conv3d`` there."""
 
     def __init__(
         self,
@@ -78,11 +100,13 @@ class PredictorBase:
         use_ema: bool = True,
         dtype: torch.dtype = torch.bfloat16,
         fold_bn: bool = True,
-        dw3d_use_kernel: bool = False,
+        dw3d_use_kernel: bool | None = None,
         device: str | torch.device = "cuda",
         weights: tuple[dict, dict] | None = None,
     ):
         self.device = resolve_device(device)
+        if dw3d_use_kernel is None:
+            dw3d_use_kernel = self.device.type == "cuda"
         if (checkpoint_path is None) == (weights is None):
             raise ValueError("pass exactly one of checkpoint_path and weights")
         if weights is None:
@@ -109,6 +133,79 @@ class PredictorBase:
         self.model_stack_size = self.model.stack_size
         self.num_stacks = self.model.num_stacks
         self.image_size = tuple(params["frames_processor"][1]["size"])  # (W, H)
+
+    def pad_frame(self, frame: np.ndarray) -> np.ndarray:
+        return pad_frame(frame, self.image_size)
+
+    def fwd2d(self, frames_u8: torch.Tensor) -> torch.Tensor:
+        """(B, stack, H, W) padded u8 stacks → (B, tta, h, w, C) features:
+        float32, /255, hflip TTA stacked tta-major, then ``forward_2d``."""
+        x = frames_u8.float() / 255.0
+        if self.tta:
+            x = torch.cat([x, x.flip(-1)], dim=0)
+        feats = self.model.forward_2d(x)[:, 0]  # (tta·B, h, w, C)
+        feats = feats.reshape((self.num_tta, frames_u8.shape[0]) + feats.shape[1:])
+        return feats.transpose(0, 1)
+
+    def fwd3d_head(self, feats: torch.Tensor) -> torch.Tensor:
+        """(B, num_stacks, h, w, C) features → (B, classes) float32
+        sigmoids: ``forward_3d``, then ``forward_head`` (GeM over the
+        concatenated stack map)."""
+        logits = self.model.forward_head(self.model.forward_3d(feats))
+        return torch.sigmoid(logits.float())
+
+    def upload(self, frames_u8: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(frames_u8).to(self.device)
+
+
+class StreamingPredictor(PredictorBase):
+    """Per-frame streaming predictor with a frame dict and a stack-feature
+    cache (the reference's ``MultiDimStackerPredictor``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._frame_index2frame: dict[int, np.ndarray] = {}
+        self._stack_indexes2features: dict[tuple[int, ...], torch.Tensor] = {}
+        self._predict_offset = self.indexes_generator.make_stack_indexes(0)[-1]
+
+    def reset_buffers(self) -> None:
+        self._frame_index2frame = {}
+        self._stack_indexes2features = {}
+
+    def _clear_old(self, minimum_index: int) -> None:
+        for idx in [i for i in self._frame_index2frame if i < minimum_index]:
+            del self._frame_index2frame[idx]
+        stale = [k for k in self._stack_indexes2features if any(i < minimum_index for i in k)]
+        for key in stale:
+            del self._stack_indexes2features[key]
+
+    def predict(self, frame: np.ndarray, index: int) -> tuple[torch.Tensor | None, int]:
+        """Feed one decoded grayscale frame; returns (prediction, predict
+        index). The prediction is None until the lagging window is full,
+        else a (num_classes,) tensor on the device, not synchronised, so
+        that decoding overlaps the device's work."""
+        self._frame_index2frame[index] = self.pad_frame(np.asarray(frame))
+        predict_index = index - self._predict_offset
+        predict_indexes = self.indexes_generator.make_stack_indexes(predict_index)
+        self._clear_old(predict_indexes[0])
+        if not set(predict_indexes) <= set(self._frame_index2frame):
+            return None, predict_index
+
+        stacks_indexes = list(_batched(predict_indexes, self.model_stack_size))
+        missing = [s for s in stacks_indexes if s not in self._stack_indexes2features]
+        with torch.inference_mode():
+            if missing:
+                # one encoder call for every uncached stack (a stream's start
+                # needs them all; the steady state needs one)
+                frames = np.stack([np.stack([self._frame_index2frame[i] for i in stack])
+                                   for stack in missing])
+                feats = self.fwd2d(self.upload(frames))
+                for j, stack in enumerate(missing):
+                    self._stack_indexes2features[stack] = feats[j]  # (tta, h, w, C)
+            feats = torch.stack([self._stack_indexes2features[s] for s in stacks_indexes],
+                                dim=1)  # (tta, S, h, w, C)
+            prediction = self.fwd3d_head(feats).mean(dim=0)
+        return prediction, predict_index
 
 
 class ChunkedVideoPredictor(PredictorBase):
@@ -185,12 +282,9 @@ class ChunkedVideoPredictor(PredictorBase):
 
     # --- host loop -------------------------------------------------------
 
-    def _upload(self, frames_u8: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(frames_u8).to(self.device)
-
     def init_carry(self, first_frames_u8: np.ndarray):
         """Device carry from the first ``overlap`` (padded, uint8) frames."""
-        frames = self._upload(first_frames_u8)
+        frames = self.upload(first_frames_u8)
         return self.bootstrap(frames) if self.carry_features else frames
 
     def predict_video(
@@ -212,7 +306,7 @@ class ChunkedVideoPredictor(PredictorBase):
                 num_classes=self.model.num_classes,
                 frames=frames,
                 frame_count=frame_count,
-                put_new=self._upload,
+                put_new=self.upload,
                 put_carry=self.init_carry,
             )
 
@@ -279,3 +373,32 @@ def iter_source_frames(source) -> Iterator[tuple[int, np.ndarray]]:
     """(index, frame) sequential-decode iterator over a FrameSource."""
     for idx in range(source.num_frames):
         yield idx, source.fetch_frame()
+
+
+def get_raw_predictions(predictor: StreamingPredictor, source,
+                        frame_count: int | None = None) -> tuple[list[int], np.ndarray]:
+    """The streaming engine's whole-video loop: (frame_indexes, raw sigmoid
+    predictions) over the same range as ``ChunkedVideoPredictor``. The rows
+    are stacked on the device and copied to the host once."""
+    frame_count = frame_count or source.num_frames
+    gen = predictor.indexes_generator
+    min_index = gen.clip_index(0, frame_count, 1)
+    max_index = gen.clip_index(frame_count, frame_count, 1)
+    if max_index < min_index:  # video shorter than one window
+        return [], np.zeros((0, predictor.model.num_classes), np.float32)
+    predictor.reset_buffers()
+    frame_index2prediction: dict[int, torch.Tensor] = {}
+    frame_index = -1
+    while True:
+        frame = source.fetch_frame()
+        frame_index += 1
+        prediction, predict_index = predictor.predict(frame, frame_index)
+        if prediction is not None and predict_index >= min_index:
+            frame_index2prediction[predict_index] = prediction
+        if predict_index >= max_index:
+            break
+    predictor.reset_buffers()
+    frame_indexes = sorted(frame_index2prediction)
+    with torch.inference_mode():
+        raw = torch.stack([frame_index2prediction[i] for i in frame_indexes]).cpu().numpy()
+    return frame_indexes, raw

@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): kernels, the
-flagship chunked inference path, the flagship training path, and the rest
-of the four-stage recipe with its evaluation.
+flagship chunked inference path, the flagship training path, the rest of
+the four-stage recipe with its evaluation, and the serving path.
 
     python3 chip_smoke.py
 
@@ -13,7 +13,9 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    shapes, and times kernel, plain version and the one PyTorch call that
    computes the same function (CUDA events around the call, median of 10:
    ``kernel_ms``, what a caller pays) and the kernel's own device time
-   (torch.profiler over 10 calls, median: ``device_ms``). Prints one JSON
+   (torch.profiler over 10 calls, median of per-call sums: ``device_ms``;
+   the serving shapes' rows take each kernel's median over the launches
+   the profiler saw, ``device_ms_method``). Prints one JSON
    line per kernel and shape with its bound on an H100 SXM. GeM at the
    inference head's and the train step's head's shapes in bf16, with its
    backward in float32 and bf16, and two runs bit-identical; the depthwise
@@ -29,7 +31,8 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
 3. Drives the flagship ``ChunkedVideoPredictor`` (EfficientNetV2-b0, 15
    frames, 1280x736, four 3D blocks at 576 channels, chunk 128, bf16,
    seeded random weights) over a synthetic video: hflip TTA on and off, the
-   depthwise kernel on and off, feature carry and frame carry. The main
+   depthwise kernel on and off (off: the grouped ``conv3d``, named
+   ``default`` in the checks), feature carry and frame carry. The main
    path (TTA on, kernel on, feature carry) runs with the launch counters
    set to 0 and must launch GeM and the depthwise conv. Checks the outputs,
    the spotting JSON, a float32 run against the plain batch forward, and
@@ -61,11 +64,31 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    the two are ensembled and zipped, and the zip must score as its
    directory. The action checkpoint predicts its game (TTA off, kernel on),
    scored at "tight". Each path runs with the launch counters set to 0.
-6. Prints the ``kernels`` JSON line (one row per kernel and main path:
+6. Serving, at the flagship's full width (bf16, hflip TTA on, the
+   engines' default route, which on the card is the depthwise kernel) on
+   synthetic 1280x720 videos: GeM and the
+   depthwise conv at the serving shapes against their plain versions; the
+   per-frame ``StreamingPredictor`` against the chunked engine over 414
+   frames (and in float32 over 160 frames); ``MultiStreamPredictor`` on 4
+   live streams of 96 frames (staggered admission, a tick of 2 frames per
+   stream, a ragged tick, a close that moves a slot and a reopen) against a
+   ``StreamingPredictor`` per stream; ``DeviceStateMultiStreamPredictor``
+   on the same feed against the host-state engine; the HTTP server
+   (``predict/server.py``) with each engine, built and warmed as its CLI
+   does, 4 client threads posting 96 frames each and polling until all 68
+   predictions of each stream came back, against the direct runs, then the
+   same clients again on the same engine (every tick shape the first run
+   reached now run once), tick latency p50/p99 of both runs and the tick
+   shapes warmup did not run; tick latency of both engines at buckets
+   1, 4, 8 and 16 (information only). Each path runs with the launch
+   counters set to 0 and must launch GeM and the depthwise conv.
+7. Prints the ``kernels`` JSON line (one row per kernel and main path:
    GeM on the inference and on the training path, the depthwise conv, and
    the warp's H and V passes, each with its own launches and bound, and
-   ``launches_by_path``: the recipe phase's paths of the same kind, each of
-   which must launch it), then the device line last.
+   ``launches_by_path``: the recipe and serving phases' paths of the same
+   kind, each of which must launch it; then GeM and the depthwise conv at
+   the serving shapes, each with the serving paths), then the device line
+   last.
 
 Float32 comparisons run with TF32 off (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32`` set False): cuDNN would
@@ -82,7 +105,10 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -131,8 +157,19 @@ from ball_action_spotting_torch.ops.dwconv3d import (
 from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_reference
 from ball_action_spotting_torch.ops.losses import FocalLoss
 from ball_action_spotting_torch.predict.__main__ import main as ball_predict
+from ball_action_spotting_torch.predict.multistream import device_state_tick_ms, device_tick_ms
 from ball_action_spotting_torch.predict.pipeline import predict_games
-from ball_action_spotting_torch.predict.streaming import ChunkedVideoPredictor
+from ball_action_spotting_torch.predict.server import (
+    _to_host,
+    build_engine,
+    make_server,
+    warm_engine,
+)
+from ball_action_spotting_torch.predict.streaming import (
+    ChunkedVideoPredictor,
+    StreamingPredictor,
+    get_raw_predictions,
+)
 from ball_action_spotting_torch.train.checkpoint import get_best_checkpoint_path, load_checkpoint
 from ball_action_spotting_torch.train.engine import Trainer
 from ball_action_spotting_torch.train.optim import build_optimizer
@@ -274,6 +311,26 @@ ACTION_EVENTS = {1: {40: ("Goal", "visible"), 80: ("Corner", "not shown"),
                      120: ("Red card", "not shown")},
                  2: {60: ("Yellow card", "visible"), 100: ("Throw-in", "not shown")}}
 MAP_ATOL = 0.02  # a_mAP@1 kernel vs default path, as PRED_BF16_ATOL for their sigmoids
+# Serving phase: one synthetic 1280x720 video of 414 frames (3 chunks; the
+# middle 720 rows of the inference phase's 736-row video), which the
+# streaming engine runs (in float32 its first 160 frames), and 4 live
+# streams of 96 frames, its first four 96-frame segments; a window spans 29
+# frames (15 frames 2 apart), so each stream has 68 predictions. Tick
+# latency at these buckets, against one frame at 25 fps.
+SERVE_STREAMS = 4
+SERVE_FRAMES = 96
+SERVE_WINDOW = 29
+STREAM_FRAMES = 3 * CHUNK + 30
+STREAM_F32_FRAMES = 160
+TICK_BUCKETS = (1, 4, 8, 16)
+REALTIME_MS = 40.0
+SERVE_MAX_BATCH = 2 * SERVE_STREAMS  # a backlogged tick takes 2 frames per stream
+# GeM at the host-state engine's (bucket 8 · TTA 2, 23, 40, 5·256) and the
+# device-state tick's (bucket 8 · TTA 2 · 5 stacks, 23, 40, 256) head, the
+# depthwise conv at N = bucket 8 · TTA 2
+SERVE_GEM_SHAPES = {"gem_pool_serve_host": (16, 23, 40, 5 * 256),
+                    "gem_pool_serve_device": (80, 23, 40, 256)}
+SERVE_DW_N = 16
 TINY_ARCH = (8, (BlockDef("cn", 1, 3, 1, 1, 8), BlockDef("er", 1, 3, 2, 2, 8),
                  BlockDef("er", 1, 3, 2, 2, 16), BlockDef("ir", 1, 3, 2, 2, 16, 0.25),
                  BlockDef("ir", 1, 3, 2, 2, 24, 0.25)), 1.0, 1.0)
@@ -302,27 +359,64 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, match: str, reps: int = 10, warmup: int = 2) -> float:
+def device_ms(fn, match: str, reps: int = 10, warmup: int = 2, per_call: int = 1,
+              tries: int = 3) -> float:
     """The kernel's own time per call: the median over ``reps`` calls of
-    ``fn`` of the summed device time of the kernels whose name holds
-    ``match`` (torch.profiler, which traces ctypes launches like any other)."""
+    ``fn`` of the summed device time of the ``per_call`` kernels a call
+    launches whose name holds ``match`` (torch.profiler, which traces
+    ctypes launches like any other). A window in which the profiler saw
+    another count than ``per_call · reps`` launches is profiled again, up
+    to ``tries`` times, and then fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name)
-    if not spans or len(spans) % reps:
-        fail(f"the profiler saw {len(spans)} launches of {match!r} in {reps} calls")
-    per_call = len(spans) // reps
-    return statistics.median(
-        sum(end - start for start, end in spans[i:i + per_call]) / 1e3
-        for i in range(0, len(spans), per_call))
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name)
+        seen.append(len(spans))
+        if len(spans) == per_call * reps:
+            return statistics.median(
+                sum(end - start for start, end in spans[i:i + per_call]) / 1e3
+                for i in range(0, len(spans), per_call))
+    fail(f"the profiler saw {seen} launches of {match!r} in windows of {reps} calls, "
+         f"expected {per_call * reps}")
+
+
+def device_ms_per_kernel(fn, match: str, kernels: int, reps: int = 10, warmup: int = 2,
+                         tries: int = 3) -> float:
+    """``device_ms`` for the serving shapes' rows, where the tracer missed
+    kernels of a window on the card (7 of 24 at GeM's two launches at
+    (80, 23, 40, 256)): the sum over the ``kernels`` kernels whose name
+    holds ``match`` of each one's median device time over the launches the
+    profiler saw of its last ``reps``, at least ``reps // 2``. The window
+    runs ``warmup + reps`` calls and is profiled again, up to ``tries``
+    times, while it sees fewer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(warmup + reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict[str, list] = {}
+        for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+            if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name:
+                by_name.setdefault(e.name, []).append((e.time_range.end - e.time_range.start) / 1e3)
+        seen.append({name[:40]: len(v) for name, v in by_name.items()})
+        if len(by_name) == kernels and all(len(v) >= reps // 2 for v in by_name.values()):
+            return sum(statistics.median(v[-reps:]) for v in by_name.values())
+    fail(f"the profiler saw {seen} launches of {match!r} in windows of {warmup + reps} calls")
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -377,11 +471,12 @@ def gem_backward_diffs(x, p) -> dict:
             "dp_abs_diff": dp_diff, "dp_ref": pr.grad.item()}
 
 
-def check_gem(dev, shape: tuple, path: str) -> dict:
+def check_gem(dev, shape: tuple, path: str, per_kernel: bool = False) -> dict:
     """GeM at one of its main-path shapes in bf16: the inference head's
     (num_tta·CHUNK·5, 23, 40, 256) or the train step's head
     (BATCH, 23, 40, 5·256). The backward is checked on the first CHUNK·5
-    rows in float32 and in bf16 (the train step's dtype)."""
+    rows in float32 and in bf16 (the train step's dtype). ``per_kernel``
+    takes the device time by ``device_ms_per_kernel``."""
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
     p = torch.tensor([3.0], device=dev)
@@ -399,24 +494,36 @@ def check_gem(dev, shape: tuple, path: str) -> dict:
 
     nbytes = x.numel() * 2 + out.numel() * 4 + 4
     bound_ms, bound_by = bound(nbytes, 5 * x.numel())  # clamp, log, mul, exp, add
+    b, h, w, c = shape  # bf16, contiguous: 8 channels a lane; split H·W is two launches
+    splits = gem_ops.gem_splits(b, h * w, c, 8, torch.cuda.get_device_properties(dev)
+                                .multi_processor_count)
+    launches = 2 if splits > 1 else 1
     row = {
         "name": "gem_pool", "path": path, "shape": list(x.shape), "dtype": "bfloat16",
         "max_abs_diff": err, "tolerance": tol,
         "kernel_ms": median_ms(lambda: gem_pool(x, p)),
-        "device_ms": device_ms(lambda: gem_pool(x, p), "gem_"),
+        "device_ms": (device_ms_per_kernel(lambda: gem_pool(x, p), "gem_", launches)
+                      if per_kernel else device_ms(lambda: gem_pool(x, p), "gem_",
+                                                   per_call=launches)),
+        "device_ms_method": "per_kernel_median" if per_kernel else "per_call_sum",
         "plain_ms": median_ms(lambda: gem_pool_reference(x, p)),
         "library_ms": median_ms(
             lambda: x.float().clamp_min(1e-6).pow(p).mean((1, 2)).pow(1.0 / p)),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "backward": backward, "grad_rtol": GEM_GRAD_RTOL, "bf16_dx_rounding": GEM_GRAD_ROUND,
+        "gem_splits": splits,
     }
     log(row)
     return row
 
 
-def check_dwconv(dev, num_tta: int) -> dict:
+def check_dwconv(dev, num_tta: int, n: int | None = None, path: str = "inference",
+                 per_kernel: bool = False) -> dict:
+    """The depthwise conv at (n, 5, 23, 40, 576) bf16, n = num_tta·CHUNK
+    (the chunk program's) unless given. ``per_kernel`` takes the device
+    time by ``device_ms_per_kernel``."""
     g = torch.Generator(device=dev).manual_seed(2)
-    x = torch.randn((num_tta * CHUNK, 5, 23, 40, 576), generator=g,
+    x = torch.randn((n or num_tta * CHUNK, 5, 23, 40, 576), generator=g,
                     device=dev).to(torch.bfloat16)
     k = (torch.randn((3, 3, 3, 1, 576), generator=g, device=dev) / 27 ** 0.5).to(torch.bfloat16)
     out = dwconv3d(x, k)
@@ -432,10 +539,13 @@ def check_dwconv(dev, num_tta: int) -> dict:
     nbytes = 2 * x.numel() * 2 + 27 * 576 * 2
     bound_ms, bound_by = bound(nbytes, 54 * x.numel())
     row = {
-        "name": "dwconv3d", "tta": num_tta == 2, "shape": list(x.shape), "dtype": "bfloat16",
+        "name": "dwconv3d", "path": path, "tta": num_tta == 2, "shape": list(x.shape),
+        "dtype": "bfloat16",
         "max_abs_diff": err, "tolerance": tol, "library_max_abs_diff": lib_err,
         "kernel_ms": median_ms(lambda: dwconv3d(x, k)),
-        "device_ms": device_ms(lambda: dwconv3d(x, k), "dwconv3d_kernel"),
+        "device_ms": (device_ms_per_kernel(lambda: dwconv3d(x, k), "dwconv3d_kernel", 1)
+                      if per_kernel else device_ms(lambda: dwconv3d(x, k), "dwconv3d_kernel")),
+        "device_ms_method": "per_kernel_median" if per_kernel else "per_call_sum",
         "plain_ms": median_ms(lambda: dwconv3d_reference(x, k)),
         "library_ms": median_ms(lambda: dwconv3d_grouped_conv(x, k)),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -765,7 +875,9 @@ def agree(name: str, a: np.ndarray, b: np.ndarray, atol: float) -> float:
     return diff
 
 
-def flagship(dev, card: str) -> dict:
+def flagship(dev, card: str) -> tuple[dict, tuple, np.ndarray]:
+    """The chunked inference phase; returns its launches, and the seeded
+    weights and synthetic video, which the serving phase uses again."""
     num_frames = 3 * CHUNK + 30  # 3 chunks of predictions
     src = SyntheticSource(num_frames=num_frames, height=HEIGHT, width=WIDTH, seed=0,
                           events={100: 0, 200: 1, 300: 0})
@@ -796,10 +908,10 @@ def flagship(dev, card: str) -> dict:
             fail("spotting JSON malformed")
     log({"check": "spotting_json", "predictions": len(spotting["predictions"])})
 
-    _, raw_tta_lib, _ = run_video(predictor(tta=True), frames)
+    _, raw_tta_lib, _ = run_video(predictor(tta=True, dw3d_use_kernel=False), frames)
     agree("tta_kernel_vs_default", raw_main, raw_tta_lib, PRED_BF16_ATOL)
     _, raw_k, secs_k = run_video(predictor(dw3d_use_kernel=True), frames)
-    _, raw_d, _ = run_video(predictor(), frames)
+    _, raw_d, _ = run_video(predictor(dw3d_use_kernel=False), frames)
     agree("kernel_vs_default", raw_k, raw_d, PRED_BF16_ATOL)
     frame_carry = predictor(dw3d_use_kernel=True, carry_features=False)
     idx_f, raw_f, _ = run_video(frame_carry, frames)
@@ -827,12 +939,13 @@ def flagship(dev, card: str) -> dict:
         "end_to_end_fps_tta_off": expected / secs_k,
         "device_fps_tta_off": device_fps(predictor(dw3d_use_kernel=True), frames),
         "device_fps_tta_on": device_fps(main, frames),
-        "device_fps_tta_off_default_dwconv": device_fps(predictor(), frames),
+        "device_fps_tta_off_default_dwconv": device_fps(predictor(dw3d_use_kernel=False),
+                                                        frames),
     }
     log({"phase": "fps", **fps})
     profile_chunks(predictor(dw3d_use_kernel=True), frames)
     profile_chunks(main, frames)
-    return launches
+    return launches, weights, frames
 
 
 # --------------------------------------------------------------- phase 4 ---
@@ -1206,7 +1319,8 @@ def ball_predict_evaluate(dev, game: str, work: Path, launches: dict) -> dict:
     default_dir = preds / "ball_tuning_001_default" / "cv" / "fold_0"
     counted("eval_predict", launches, lambda: predict_games(
         ckpt, [game], ball.DOMAIN, kernel_dir, tta=True, device=dev, dw3d_use_kernel=True))
-    predict_games(ckpt, [game], ball.DOMAIN, default_dir, tta=True, device=dev)
+    predict_games(ckpt, [game], ball.DOMAIN, default_dir, tta=True, device=dev,
+                  dw3d_use_kernel=False)
     got = launches["eval_predict"]
     if not (got["gem"] > 0 and got["dwconv3d"] > 0):
         fail(f"ball predict did not launch GeM and dwconv3d: {got}")
@@ -1309,6 +1423,354 @@ def recipe_and_evaluation(dev, card: str, work: Path) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 6 ---
+
+class FramesSource:
+    """Frames already decoded, read in order: the ``fetch_frame()`` and
+    ``num_frames`` of a video source."""
+
+    def __init__(self, frames: np.ndarray):
+        self.num_frames = len(frames)
+        self._frames = iter(frames)
+
+    def fetch_frame(self) -> np.ndarray:
+        return next(self._frames)
+
+
+def streaming_vs_chunked(dev, weights, frames: np.ndarray, launches: dict) -> None:
+    """The per-frame streaming engine against the chunked engine over the
+    414 ``frames`` in bf16 (counted as the ``streaming`` path), then over
+    the first 160 in float32."""
+    for dtype, n, atol in ((torch.bfloat16, STREAM_FRAMES, PRED_BF16_ATOL),
+                           (torch.float32, STREAM_F32_FRAMES, PRED_F32_ATOL)):
+        kw = dict(weights=weights, device=dev, tta=True, dtype=dtype)
+        c_idx, c_raw, _ = run_video(ChunkedVideoPredictor(chunk_size=32, **kw), frames[:n])
+        streaming = StreamingPredictor(**kw)
+        get_raw_predictions(streaming, FramesSource(frames[:40]), 40)  # warm-up
+        name = "streaming" if dtype == torch.bfloat16 else "streaming_f32"
+        t0 = time.perf_counter()
+        s_idx, s_raw = counted(name, launches, lambda: get_raw_predictions(
+            streaming, FramesSource(frames[:n]), n))
+        seconds = time.perf_counter() - t0
+        check_outputs(f"streaming engine ({dtype})", s_idx, s_raw, n - SERVE_WINDOW - 1)
+        if s_idx != list(c_idx):
+            fail(f"streaming and chunked engines cover other indexes ({dtype})")
+        agree(f"streaming_vs_chunked_{str(dtype).replace('torch.', '')}", s_raw, c_raw, atol)
+        log({"phase": "streaming", "dtype": str(dtype), "frames": n,
+             "predictions_per_sec": len(s_idx) / seconds, "launches": launches[name]})
+
+
+def serving_feed() -> list:
+    """The direct serving runs' events over ``SERVE_STREAMS`` streams:
+    ``("batch", [(stream, frame index), ...])`` or ``("close", stream)``.
+    Stream k starts at tick 2k, one frame per tick; at tick 20 every stream
+    sends 2 frames (a uniform backlog), 15 ticks later stream 0 sends 2 and
+    the others 1 (ragged); then stream 0 closes (on the device-state engine
+    the last slot moves into its row) and opens again from frame 0, and
+    every stream runs to the end of its video."""
+    pos = {k: 0 for k in range(SERVE_STREAMS)}
+    events = []
+
+    def tick(counts: dict) -> None:
+        items = []
+        for k, n in counts.items():
+            n = min(n, SERVE_FRAMES - pos[k])
+            items += [(k, pos[k] + j) for j in range(n)]
+            pos[k] += n
+        if items:
+            events.append(("batch", items))
+
+    for t in range(20):
+        tick({k: 1 for k in pos if t >= 2 * k})
+    tick({k: 2 for k in pos})
+    for _ in range(15):
+        tick({k: 1 for k in pos})
+    tick({k: 2 if k == 0 else 1 for k in pos})
+    events.append(("close", 0))
+    pos[0] = 0
+    while any(p < SERVE_FRAMES for p in pos.values()):
+        tick({k: 1 for k in pos})
+    return events
+
+
+def serve_direct(predictor, videos: dict, events: list) -> dict:
+    """Run ``events`` through ``predict_batch``; {(stream, life): {predict
+    index: prediction}}, a stream's life counting its closes. Each tick's
+    predictions are copied to the host once."""
+    life = {k: 0 for k in videos}
+    out: dict = {}
+    for kind, arg in events:
+        if kind == "close":
+            predictor.close_stream(arg)
+            life[arg] += 1
+            continue
+        results = predictor.predict_batch([(k, videos[k][i], i) for k, i in arg])
+        for k, pred, pi in _to_host(results):
+            if pred is not None:
+                out.setdefault((k, life[k]), {})[pi] = pred
+    return out
+
+
+def fed_per_life(events: list) -> dict:
+    """Frames each (stream, life) of ``events`` feeds."""
+    life, fed = {}, {}
+    for kind, arg in events:
+        if kind == "close":
+            life[arg] = life.get(arg, 0) + 1
+            continue
+        for k, _ in arg:
+            key = (k, life.get(k, 0))
+            fed[key] = fed.get(key, 0) + 1
+    return fed
+
+
+def compare_runs(name: str, got: dict, ref: dict, atol: float, same_keys: bool = True) -> float:
+    """Max |diff| of two runs' predictions over the indexes of ``got`` that
+    ``ref`` has; with ``same_keys`` both must hold the same indexes."""
+    worst = 0.0
+    for key, preds in got.items():
+        if same_keys and set(preds) != set(ref.get(key, {})):
+            fail(f"{name}: {key} has other predict indexes than its reference")
+        common = sorted(set(preds) & set(ref[key]))
+        if not common:
+            fail(f"{name}: {key} has no predict index in common with its reference")
+        diff = np.abs(np.stack([preds[i] for i in common]) - np.stack([ref[key][i] for i in common]))
+        worst = max(worst, float(diff.max()))
+    log({"check": name, "max_abs_diff": worst, "atol": atol})
+    if not worst <= atol:
+        fail(f"{name}: max|diff| {worst} > {atol}")
+    return worst
+
+
+def serving_engines(dev, weights, videos: dict, launches: dict) -> dict:
+    """Host-state engine against a streaming engine per stream, then the
+    device-state engine against the host-state engine, on one feed."""
+    events = serving_feed()
+    expected = {key: n - SERVE_WINDOW + 1 for key, n in fed_per_life(events).items()}
+    kw = dict(weights=weights, device=dev, tta=True)
+    per_stream = {}
+    streaming = StreamingPredictor(**kw)  # get_raw_predictions starts each stream afresh
+    for k, frames in videos.items():
+        idx, raw = get_raw_predictions(streaming, FramesSource(frames), SERVE_FRAMES)
+        per_stream[k] = dict(zip(idx, raw))
+    runs = {}
+    for name, device_state in (("serve_host", False), ("serve_device", True)):
+        predictor = build_engine(device_state=device_state, **kw)
+        warm_engine(predictor, SERVE_STREAMS, SERVE_MAX_BATCH)
+        t0 = time.perf_counter()
+        runs[name] = counted(name, launches, lambda: serve_direct(predictor, videos, events))
+        seconds = time.perf_counter() - t0
+        counts = {key: len(v) for key, v in runs[name].items()}
+        log({"phase": name, "ticks": sum(kind == "batch" for kind, _ in events),
+             "predictions_by_stream_life": {f"{k}.{life}": n for (k, life), n in counts.items()},
+             "seconds": seconds, "launches": launches[name]})
+        if counts != expected:
+            fail(f"{name}: predictions per stream life {counts}, expected {expected}")
+    compare_runs("serve_host_vs_per_stream",
+                 runs["serve_host"], {key: per_stream[key[0]] for key in expected},
+                 PRED_BF16_ATOL, same_keys=False)
+    compare_runs("serve_device_vs_host", runs["serve_device"], runs["serve_host"], PRED_BF16_ATOL)
+    return runs
+
+
+def http_json(method: str, url: str, data: bytes | None = None,
+              timeout: float = 120.0) -> tuple[int, dict]:
+    req = urllib.request.Request(url, data=data, method=method)
+    if data is not None:
+        req.add_header("Content-Type", "application/octet-stream")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def serve_http(predictor, videos: dict, prefix: str = "s") -> tuple[dict, dict]:
+    """``make_server`` on 127.0.0.1, an ephemeral port; one client thread
+    per stream (id ``prefix`` + k) posts its frames, polls ``/results``
+    until all of the stream's predictions came back, then closes the
+    stream. Returns ({k: {index: probs}}, the ``/v1/stats`` payload with the
+    clients' slowest request in seconds); everything started is stopped. A request may take up to 120 s, so a
+    slow one shows in ``max_request_s`` instead of failing the run (with
+    the stdlib's listen backlog of 5, dropped connection attempts once made
+    one request take 63 s on the card); a failed one names its URL and
+    seconds."""
+    server, service = make_server(predictor, "127.0.0.1", 0, max_batch=SERVE_MAX_BATCH)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    want = SERVE_FRAMES - SERVE_WINDOW + 1
+    results: dict = {}
+    errors: list = []
+    slowest = [0.0]
+
+    def timed(method, url, data=None):
+        t0 = time.perf_counter()
+        try:
+            return http_json(method, url, data)
+        except urllib.error.HTTPError:
+            raise
+        except Exception as err:
+            raise RuntimeError(f"{method} {url} after {time.perf_counter() - t0:.1f} s: "
+                               f"{err!r}") from err
+        finally:
+            slowest[0] = max(slowest[0], time.perf_counter() - t0)
+
+    def client(k, frames):
+        try:
+            for i, frame in enumerate(frames):
+                url = (f"{base}/v1/streams/{prefix}{k}/frames?index={i}"
+                       f"&height={VIDEO_HEIGHT}&width={WIDTH}")
+                while True:
+                    try:
+                        status, _ = timed("POST", url, frame.tobytes())
+                        break
+                    except urllib.error.HTTPError as err:  # 503: the ingest queue is full
+                        if err.code != 503:
+                            raise
+                        time.sleep(0.01)
+                if status != 202:
+                    raise RuntimeError(f"stream {k} frame {i}: HTTP {status}")
+            deadline = time.perf_counter() + 120
+            got = []
+            while len(got) < want and time.perf_counter() < deadline:
+                _, payload = timed("GET", f"{base}/v1/streams/{prefix}{k}/results?since=0")
+                got = payload["results"]
+                time.sleep(0.05)
+            results[k] = {r["index"]: np.asarray(r["probs"], np.float32) for r in got}
+            timed("POST", f"{base}/v1/streams/{prefix}{k}/close", b"")
+        except Exception as err:  # reported after the join
+            errors.append(f"client {k}: {err!r}")
+
+    try:
+        clients = [threading.Thread(target=client, args=(k, frames)) for k, frames in videos.items()]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(timeout=300)
+        if any(c.is_alive() for c in clients) or errors:
+            fail(f"HTTP clients did not finish: {errors}")
+        _, stats = http_json("GET", f"{base}/v1/stats")
+        stats["max_request_s"] = slowest[0]
+        # the three slowest ticks, (ms, frames in the tick), in tick order
+        ticks = list(zip(service._tick_lat_s, service._tick_batch))
+        top = sorted(range(len(ticks)), key=lambda i: ticks[i][0])[-3:]
+        stats["slowest_ticks"] = [[i, round(ticks[i][0] * 1e3, 3), ticks[i][1]]
+                                  for i in sorted(top)]
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.stop()
+    return results, stats
+
+
+def serving_http(dev, weights, videos: dict, runs: dict, launches: dict) -> None:
+    """The HTTP server with the device-state engine (path ``server``), then
+    with the host-state engine (``server_host``), each built and warmed as
+    the server CLI does (``build_engine``, ``warm_engine``), against the
+    direct runs of the same engines: every stream's 68 predictions must
+    come back. Then the same clients again on the same engine, whose every
+    tick shape the first run reached has now run once: the tick latency of
+    both runs, and the shapes the first run ran that warmup did not."""
+    last_life = {}
+    for key in runs["serve_device"]:
+        last_life[key[0]] = max(last_life.get(key[0], 0), key[1])
+    want = SERVE_FRAMES - SERVE_WINDOW + 1
+    for name, device_state, direct in (("server", True, "serve_device"),
+                                       ("server_host", False, "serve_host")):
+        predictor = build_engine(weights=weights, device_state=device_state, tta=True,
+                                 device=dev)
+        warmed = warm_engine(predictor, SERVE_STREAMS, SERVE_MAX_BATCH)
+        warmed_shapes = set(predictor._shapes)
+        row = {"phase": name, "warmed_buckets": warmed}
+        for run, prefix in (("first", "s"), ("rerun", "r")):
+            t0 = time.perf_counter()
+            if run == "first":
+                results, stats = counted(name, launches, lambda: serve_http(predictor, videos))
+                row["unwarmed_shapes"] = sorted(predictor._shapes - warmed_shapes)
+            else:
+                results, stats = serve_http(predictor, videos, prefix)
+            counts = {k: len(v) for k, v in results.items()}
+            row[run] = {"predictions": counts, "seconds": time.perf_counter() - t0,
+                        "stats": {k: stats.get(k) for k in (
+                            "ticks", "tick_latency_ms", "tick_batch_mean", "frames_in",
+                            "predictions_out", "max_request_s", "slowest_ticks")}}
+            if counts != {k: want for k in videos} or stats["frames_in"] != len(videos) * SERVE_FRAMES:
+                fail(f"{name} ({run}): predictions per stream {counts}, "
+                     f"frames in {stats['frames_in']}")
+            compare_runs(f"{name}_vs_direct" + ("" if run == "first" else "_rerun"),
+                         {(k, 0): v for k, v in results.items()},
+                         {(k, 0): runs[direct][k, last_life[k]] for k in videos}, PRED_BF16_ATOL)
+        row["shapes_new_in_rerun"] = sorted(predictor._shapes - warmed_shapes
+                                            - set(row["unwarmed_shapes"]))
+        row["launches"] = launches[name]
+        log(row)
+
+
+def tick_latency(dev, weights, card: str) -> None:
+    """ms per steady-state tick of both engines at ``TICK_BUCKETS``, TTA on
+    (information only): loops of 1 and 9 ticks on features already on the
+    card, CUDA events, the difference over 8. A bound on the device and
+    launch time of a live tick, which adds the frames' upload, the host's
+    bookkeeping and the copy of the results."""
+    kw = dict(weights=weights, device=dev, tta=True)
+    engines = {"device_state": (build_engine(device_state=True, slot_capacity=max(TICK_BUCKETS),
+                                             **kw), device_state_tick_ms),
+               "host_state": (build_engine(**kw), device_tick_ms)}
+    row = {"phase": "serve_tick_ms", "card": card, "tta": True, "budget_ms": REALTIME_MS}
+    for name, (predictor, timer) in engines.items():
+        ms = {b: timer(predictor, b, reps=2)[0] for b in TICK_BUCKETS}
+        fits = [b for b, t in ms.items() if t <= REALTIME_MS]
+        row[name] = ms
+        row[f"{name}_largest_bucket_within_budget"] = max(fits) if fits else None
+    log(row)
+
+
+def serving_kernels(dev) -> dict:
+    """GeM and the depthwise conv at the serving shapes, against their
+    plain versions; GeM there must split H·W (one wrapper launch, two
+    device kernels)."""
+    rows = {}
+    for name, shape in SERVE_GEM_SHAPES.items():
+        rows[name] = check_gem(dev, shape, name.removeprefix("gem_pool_"), per_kernel=True)
+        if not rows[name]["gem_splits"] > 1:
+            fail(f"gem at {shape}: {rows[name]['gem_splits']} H·W splits, expected more than 1")
+    rows["dwconv3d_serve"] = check_dwconv(dev, 2, n=SERVE_DW_N, path="serve", per_kernel=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serving(dev, weights, video: np.ndarray, card: str) -> tuple[dict, dict]:
+    """The serving phase on the inference phase's synthetic ``video``, its
+    middle 720 rows; returns the launches of each path and the kernel rows
+    at the serving shapes."""
+    launches: dict = {}
+    t0 = time.perf_counter()
+    steps = {}
+
+    def step(name, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        steps[name] = time.perf_counter() - start
+        return out
+
+    rows = step("kernels", serving_kernels, dev)
+    # one synthetic 720p video: the streaming engine's, and four 96-frame
+    # segments of it, one per live stream
+    top = (video.shape[1] - VIDEO_HEIGHT) // 2
+    frames = np.ascontiguousarray(video[:STREAM_FRAMES, top:top + VIDEO_HEIGHT])
+    videos = {k: frames[k * SERVE_FRAMES:(k + 1) * SERVE_FRAMES] for k in range(SERVE_STREAMS)}
+    step("streaming", streaming_vs_chunked, dev, weights, frames, launches)
+    runs = step("engines", serving_engines, dev, weights, videos, launches)
+    step("http", serving_http, dev, weights, videos, runs, launches)
+    step("tick_latency", tick_latency, dev, weights, card)
+    for path in ("streaming", "serve_host", "serve_device", "server", "server_host"):
+        got = launches[path]
+        if not (got["gem"] > 0 and got["dwconv3d"] > 0):
+            fail(f"the {path} path did not launch GeM and dwconv3d: {got}")
+    log({"phase": "serving_done", "launches": launches, "seconds_by_step": steps,
+         "seconds": time.perf_counter() - t0})
+    return launches, rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1344,7 +1806,7 @@ def main() -> None:
     log({"phase": "kernel_checks_done", "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    launches = flagship(dev, card)
+    launches, weights, video = flagship(dev, card)
     log({"phase": "inference_done", "seconds": time.perf_counter() - t0})
     with tempfile.TemporaryDirectory() as work:
         work = Path(work)
@@ -1354,14 +1816,22 @@ def main() -> None:
         log({"phase": "training_done", "seconds": time.perf_counter() - t0})
         torch.cuda.empty_cache()
         recipe_launches = recipe_and_evaluation(dev, card, work)
+    torch.cuda.empty_cache()
+    serve_launches, serve_rows = serving(dev, weights, video, card)
+    rows.update(serve_rows)
 
     # one row per kernel and main path; the warp's H and V passes, two
     # launches of one kernel at different shapes and access patterns, each
     # have their own row, launches and bound. ``launches`` is the row's main
-    # path; ``launches_by_path`` adds the recipe phase's paths of the same
-    # kind (inference or training), each counted from 0.
+    # path; ``launches_by_path`` adds the recipe and serving phases' paths of
+    # the same kind (inference or training), each counted from 0. GeM pools
+    # 5·256 channels on the paths through ``forward_3d`` + ``forward_head``
+    # (streaming, host-state) and 256 on those through ``forward_3d_head``
+    # (device-state tick).
+    serving_paths = {path: serve_launches[path] for path in
+                     ("streaming", "serve_host", "serve_device", "server", "server_host")}
     inference_paths = {"inference": launches, "eval_predict": recipe_launches["eval_predict"],
-                       "action_predict": recipe_launches["action_predict"]}
+                       "action_predict": recipe_launches["action_predict"], **serving_paths}
     training_paths = {"train": train_launches, "action_train": recipe_launches["action_train"],
                       "stage3_train": recipe_launches["stage3_train"]}
     sources = {
@@ -1375,6 +1845,15 @@ def main() -> None:
                             "ball_action_spotting_tpu/ops/pallas_warp.py:96", training_paths),
         "warp_resample_v": ("warp_V", "ball_action_spotting_torch/csrc/warp.cu",
                             "ball_action_spotting_tpu/ops/pallas_warp.py:96", training_paths),
+        "gem_pool_serve_host": ("gem", "ball_action_spotting_torch/csrc/gem.cu",
+                                "ball_action_spotting_tpu/ops/pallas_gem.py:64",
+                                {p: serving_paths[p] for p in
+                                 ("serve_host", "streaming", "server_host")}),
+        "gem_pool_serve_device": ("gem", "ball_action_spotting_torch/csrc/gem.cu",
+                                  "ball_action_spotting_tpu/ops/pallas_gem.py:64",
+                                  {p: serving_paths[p] for p in ("serve_device", "server")}),
+        "dwconv3d_serve": ("dwconv3d", "ball_action_spotting_torch/csrc/dwconv3d.cu",
+                           "ball_action_spotting_tpu/ops/pallas_dwconv3d.py:105", serving_paths),
     }
     kernels = []
     for name, (kernel, source, replaces, paths) in sources.items():

@@ -12,7 +12,14 @@ import pytest
 import torch
 
 from ball_action_spotting_torch.device import resolve_device
-from ball_action_spotting_torch.predict.streaming import ChunkedVideoPredictor
+from ball_action_spotting_torch.predict.multistream import (
+    DeviceStateMultiStreamPredictor,
+    MultiStreamPredictor,
+)
+from ball_action_spotting_torch.predict.streaming import (
+    ChunkedVideoPredictor,
+    StreamingPredictor,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -43,7 +50,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 68  # every module was imported
+    assert int(out.stdout.strip().splitlines()[-1]) >= 70  # every module was imported
 
 
 def test_chip_smoke_needs_a_gpu():
@@ -60,6 +67,8 @@ def test_entry_points_need_cuda_or_cpu(tmp_path):
         pytest.skip("this check is about a machine without CUDA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        ChunkedVideoPredictor(tmp_path / "model-001-0.5.ckpt")
+    for engine in (ChunkedVideoPredictor, StreamingPredictor, MultiStreamPredictor,
+                   DeviceStateMultiStreamPredictor):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            engine(tmp_path / "model-001-0.5.ckpt")
     assert resolve_device("cpu") == torch.device("cpu")
