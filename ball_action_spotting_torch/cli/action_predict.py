@@ -1,14 +1,15 @@
 """Action-domain prediction CLI: one split, hflip TTA off (port of the JAX
-package's ``scripts/action/predict.py``, on one device).
+package's ``scripts/action/predict.py``).
 
     python -m ball_action_spotting_torch.cli.action_predict --experiment NAME \\
         [--split train|val|test|challenge] [--use_saved_predictions] \\
-        [--engine chunked|streaming] [--device cuda]
+        [--engine chunked|streaming] [--data_parallel N] [--device cuda]
 
 Predicts every game of the split (``domains/action.py::load_games_list``)
 with the best ``.ckpt`` of ``data/action/experiments/NAME`` and writes the raw
 npz and ``results_spotting.json`` ("Card" written back as "Yellow card")
-under ``data/action/predictions/NAME/SPLIT``.
+under ``data/action/predictions/NAME/SPLIT``. ``--data_parallel N`` spreads
+the chunked engine's chunks over N devices, equal to one device.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ def parse_arguments(argv=None):
     parser.add_argument("--split", default="val", choices=SPLITS)
     parser.add_argument("--use_saved_predictions", action="store_true")
     parser.add_argument("--engine", default="chunked", choices=ENGINES)
+    parser.add_argument("--data_parallel", type=int, default=1,
+                        help="spread the chunked engine over N devices (equal to one)")
     parser.add_argument("--device", default="cuda", type=str)
     return parser.parse_args(argv)
 
@@ -55,7 +58,7 @@ def predict_split(experiment: str, split: str, use_saved: bool = False,
 def main(argv=None) -> None:
     args = parse_arguments(argv)
     predict_split(args.experiment, args.split, args.use_saved_predictions, args.device,
-                  args.engine)
+                  args.engine, data_parallel=args.data_parallel)
 
 
 if __name__ == "__main__":

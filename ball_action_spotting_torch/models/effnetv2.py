@@ -20,8 +20,11 @@ import math
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ball_action_spotting_torch.parallel.multihost import in_process_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +195,10 @@ class BatchNormAct(nn.Module):
     axis, with Flax's fast biased variance ``E[x²] − E[x]²`` clipped at 0,
     and the running statistics move as ``0.9·running + 0.1·batch`` (Flax
     momentum 0.9; ``nn.BatchNorm`` would use the unbiased variance there).
+    Under a ``torch.distributed`` process group the batch statistics are
+    those of the global batch (``_global_batch_stats``), as JAX computes them
+    over its data-parallel mesh; ``nn.SyncBatchNorm`` would bring torch's
+    unbiased variance and momentum with it.
     ``folded=True`` is the BN-folded form (see ``models/fold_bn.py``): the
     scale lives in the preceding conv and only a per-channel ``bias`` is
     left; it is inference-only. ``channels_last`` says whether channels are
@@ -220,8 +227,11 @@ class BatchNormAct(nn.Module):
     def _batch_stats(self, xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         dims = (tuple(range(xf.dim() - 1)) if self.channels_last
                 else (0,) + tuple(range(2, xf.dim())))
-        mean = xf.mean(dims)
-        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        if in_process_group():
+            mean, var = _global_batch_stats(xf, dims)
+        else:
+            mean = xf.mean(dims)
+            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -246,6 +256,37 @@ class BatchNormAct(nn.Module):
         return x if self.act is None else self.act(x)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the process group whose gradient is the sum of the
+    processes' gradients: each process's loss depends on every process's
+    input through the sum."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        out = x.clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        grad = grad.clone()
+        dist.all_reduce(grad)
+        return grad
+
+
+def _global_batch_stats(xf: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """The statistics of the global batch across the process group: each
+    process's float32 sums of x and x² over ``dims``, summed by a
+    differentiable all-reduce, so that the gradient sees the global
+    statistics, as GSPMD gives them to the JAX package. Every process has
+    the same count of rows (the trainer pads a short batch)."""
+    count = math.prod(xf.shape[d] for d in dims) * dist.get_world_size()
+    sums = _AllReduceSum.apply(torch.stack([xf.sum(dims), (xf * xf).sum(dims)]))
+    mean = sums[0] / count
+    var = (sums[1] / count - mean * mean).clamp_min(0.0)
+    return mean, var
+
+
 class DropPath(nn.Module):
     """Stochastic depth over the batch axis in training mode: each sample's
     residual branch is kept with probability 1 - rate and scaled by
@@ -256,13 +297,14 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.shard: Optional[tuple[int, int]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = random_keep_mask(self.generator, shape, keep, x.device)
+        mask = random_keep_mask(self.generator, shape, keep, x.device, self.shard)
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -274,29 +316,44 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.shard: Optional[tuple[int, int]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = random_keep_mask(self.generator, x.shape, keep, x.device)
+        mask = random_keep_mask(self.generator, x.shape, keep, x.device, self.shard)
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def random_keep_mask(generator: Optional[torch.Generator], shape, keep: float,
-                     device: torch.device) -> torch.Tensor:
+                     device: torch.device,
+                     shard: Optional[tuple[int, int]] = None) -> torch.Tensor:
+    """A keep mask of ``shape`` drawn from ``generator``. ``shard`` =
+    (process index, process count) in a data-parallel step: the mask is
+    drawn for the global batch, whose leading axis is the processes' equal
+    local batches one after another, and this process's rows are taken, so
+    that the step draws what one process would on the global batch."""
     if generator is None:
         raise ValueError("dropout in training mode needs a generator: call "
                          "set_dropout_generator(model, generator) first")
-    return torch.rand(shape, generator=generator, device=device) < keep
+    if shard is None:
+        return torch.rand(shape, generator=generator, device=device) < keep
+    index, count = shard
+    full = torch.rand((count * shape[0],) + tuple(shape[1:]), generator=generator,
+                      device=device)
+    return full[index * shape[0]:(index + 1) * shape[0]] < keep
 
 
-def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+def set_dropout_generator(model: nn.Module, generator: Optional[torch.Generator],
+                          shard: Optional[tuple[int, int]] = None) -> None:
     """Give every ``DropPath`` and ``Dropout`` of ``model`` the generator of
-    its masks."""
+    its masks and, in a data-parallel step, this process's (index, count)
+    (``random_keep_mask``)."""
     for module in model.modules():
         if isinstance(module, (DropPath, Dropout)):
             module.generator = generator
+            module.shard = shard
 
 
 class SqueezeExcite2d(nn.Module):

@@ -2,16 +2,18 @@
 
 Port of the JAX package's ``ops/pallas_dwconv3d.py``. ``dwconv3d`` takes
 x (N, T, H, W, C) and a kernel in the JAX layout (3, 3, 3, 1, C) and returns
-(N, T, H, W, C) in x's dtype, summing the 27 taps in float32. On a CUDA
-tensor it is the hand-written kernel ``csrc/dwconv3d.cu``; on a CPU tensor
-the plain version ``dwconv3d_reference``. Inference only: the kernel has no
-backward, as in the JAX package.
+(N, T, H, W, C) in x's dtype, summing the 27 taps in float32. It is the
+``torch.library`` custom op ``bas_torch::dwconv3d``, so that ``torch.export``
+keeps it as one node of a sealed program. On a CUDA tensor the op is the
+hand-written kernel ``csrc/dwconv3d.cu``; on a CPU tensor the plain version
+``dwconv3d_reference``. Inference only: the op registers no backward, as the
+JAX package's kernel has none.
 
 The kernel walks T inside each block over a ring of three staged input
 slices. It stages with 16-byte copies where C·itemsize is a multiple of 16
 and x is 16-byte aligned, and with one channel pair per copy otherwise; it
 takes any even C and an x aligned to a channel pair, and slices N itself.
-``dwconv3d`` brings every other CUDA tensor to it: a non-contiguous or
+The op's CUDA route brings every other CUDA tensor to it: a non-contiguous or
 misaligned x is copied, and an odd C gets one zero channel (and one zero
 tap column), sliced off the output. A width whose three staged rows do not
 fit a block's shared memory (``kernel_stages``) goes to
@@ -100,13 +102,19 @@ def dwconv3d_cuda(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def dwconv3d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Depthwise 3×3×3 SAME conv: x (N, T, H, W, C), kernel (3, 3, 3, 1, C)
-    → (N, T, H, W, C) in x's dtype. A CUDA tensor goes through the kernel
-    (or through the grouped conv where the kernel cannot stage W); a CPU
-    tensor through the plain version."""
-    if x.device.type != "cuda":
-        return dwconv3d_reference(x, kernel)
+@torch.library.custom_op("bas_torch::dwconv3d", mutates_args=(), device_types="cpu")
+def dwconv3d_op(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """``bas_torch::dwconv3d``, the registered op: the plain version on a
+    CPU tensor; on a CUDA tensor the kernel, through the shape route of
+    ``_dwconv3d_cuda_route``."""
+    return dwconv3d_reference(x, kernel)
+
+
+@dwconv3d_op.register_kernel("cuda")
+def _dwconv3d_cuda_route(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """The route of a CUDA tensor to the kernel: the grouped conv where the
+    kernel cannot stage W; one zero channel for an odd C; a copy of a
+    strided or pair-misaligned x."""
     _check_kernel_shape(x, kernel)
     if not kernel_stages(x.shape[3], x.dtype):
         return dwconv3d_grouped_conv(x, kernel)
@@ -120,6 +128,21 @@ def dwconv3d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
         x = x.clone()  # a fresh allocation starts on a pair
     out = dwconv3d_cuda(x, kernel)
     return out[..., :c].contiguous() if c % 2 else out
+
+
+@dwconv3d_op.register_fake
+def _dwconv3d_fake(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    _check_kernel_shape(x, kernel)
+    return x.new_empty(x.shape)
+
+
+def dwconv3d(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Depthwise 3×3×3 SAME conv: x (N, T, H, W, C), kernel (3, 3, 3, 1, C)
+    → (N, T, H, W, C) in x's dtype. Calls ``bas_torch::dwconv3d``: a CUDA
+    tensor goes through the kernel (or through the grouped conv where the
+    kernel cannot stage W), a CPU tensor through the plain version."""
+    _check_kernel_shape(x, kernel)
+    return dwconv3d_op(x, kernel)
 
 
 def dwconv3d_grouped_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:

@@ -3,10 +3,12 @@ scalar ``p``.
 
 Port of the JAX package's ``ops/pallas_gem.py``. ``gem_pool`` takes
 (B, H, W, C) channels-last input and a (1,) float32 ``p`` and returns (B, C)
-float32. On a CUDA tensor the forward is the hand-written kernel
-``csrc/gem.cu`` (16-byte loads where ``wide_path`` allows them, H·W split
-over ``gem_splits`` blocks where the batch fills too few); on a CPU tensor
-it is the plain version ``gem_pool_reference``. The backward is the plain
+float32. It is the ``torch.library`` custom op ``bas_torch::gem_pool``, so
+that ``torch.export`` keeps it as one node of a sealed program. On a CUDA
+tensor the op's forward is the hand-written kernel ``csrc/gem.cu`` (16-byte
+loads where ``wide_path`` allows them, H·W split over ``gem_splits`` blocks
+where the batch fills too few); on a CPU tensor it is the plain version
+``gem_pool_reference``. The backward, registered with the op, is the plain
 PyTorch formula of the JAX custom VJP (``_gem_bwd``) on both, since the JAX
 package has no backward kernel.
 """
@@ -117,28 +119,42 @@ def gem_pool_backward_reference(x, p, y, grad, eps: float = 1e-6):
     return dx, dp
 
 
-class _GemPool(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, p, eps):
-        if x.device.type == "cuda":
-            y = gem_pool_cuda(x, p, eps)
-        else:
-            _check_shapes(x, p)
-            y = gem_pool_reference(x, p, eps)
-        ctx.save_for_backward(x, p, y)
-        ctx.eps = eps
-        return y
+@torch.library.custom_op("bas_torch::gem_pool", mutates_args=(), device_types="cpu")
+def gem_pool_op(x: torch.Tensor, p: torch.Tensor, eps: float) -> torch.Tensor:
+    """``bas_torch::gem_pool``, the registered op: the plain version on a
+    CPU tensor, the kernel on a CUDA tensor (``gem_pool_cuda``)."""
+    _check_shapes(x, p)
+    return gem_pool_reference(x, p, eps)
 
-    @staticmethod
-    def backward(ctx, grad):
-        x, p, y = ctx.saved_tensors
-        dx, dp = gem_pool_backward_reference(x, p, y, grad, ctx.eps)
-        return dx, dp, None
+
+gem_pool_op.register_kernel("cuda", gem_pool_cuda)
+
+
+@gem_pool_op.register_fake
+def _gem_pool_fake(x: torch.Tensor, p: torch.Tensor, eps: float) -> torch.Tensor:
+    _check_shapes(x, p)
+    return x.new_empty((x.shape[0], x.shape[3]), dtype=torch.float32)
+
+
+def _gem_setup_context(ctx, inputs, output) -> None:
+    x, p, eps = inputs
+    ctx.save_for_backward(x, p, output)
+    ctx.eps = eps
+
+
+def _gem_backward(ctx, grad):
+    x, p, y = ctx.saved_tensors
+    dx, dp = gem_pool_backward_reference(x, p, y, grad, ctx.eps)
+    return dx, dp, None
+
+
+gem_pool_op.register_autograd(_gem_backward, setup_context=_gem_setup_context)
 
 
 def gem_pool(x: torch.Tensor, p: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """GeM pooling: (B, H, W, C) → (B, C) float32; ``p`` shape (1,).
 
-    A CUDA tensor goes through the kernel (or raises); a CPU tensor through
-    the plain version."""
-    return _GemPool.apply(x, p, eps)
+    Calls ``bas_torch::gem_pool``: a CUDA tensor goes through the kernel (or
+    raises), a CPU tensor through the plain version."""
+    _check_shapes(x, p)
+    return gem_pool_op(x, p, eps)

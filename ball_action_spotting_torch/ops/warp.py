@@ -9,7 +9,8 @@ with zeros outside, where the offset is taken at the center of each block of
 ``block`` rows (or columns), as in the JAX package.
 
 ``resample_last_axis`` runs the H pass and ``resample_columns`` the V pass
-over a batch of N images. On a CUDA tensor both are one launch of the
+over a batch of N images, both through the ``torch.library`` custom op
+``bas_torch::warp_resample``. On a CUDA tensor each is one launch of the
 hand-written kernel ``csrc/warp.cu`` (the V pass reads down the columns, so it
 needs no transposes), which reads each block's center offset itself; on a
 CPU tensor they are the plain version, the JAX package's
@@ -148,17 +149,37 @@ def _resample_cuda(img: torch.Tensor, scale: torch.Tensor, offsets: torch.Tensor
     return out
 
 
+@torch.library.custom_op("bas_torch::warp_resample", mutates_args=(), device_types="cpu")
+def warp_resample_op(img: torch.Tensor, scale: torch.Tensor, offsets: torch.Tensor,
+                     block: int, precision: str, axis: int) -> torch.Tensor:
+    """``bas_torch::warp_resample``, the registered op: one resample pass of
+    (N, H, W) images, the H pass along rows (``axis`` 2) or the V pass down
+    columns (``axis`` 1). The plain version on a CPU tensor, the kernel on a
+    CUDA tensor (``_resample_cuda``)."""
+    if axis == 2:
+        return resample_last_axis_reference(img, scale, offsets, block, precision)
+    out_t = resample_last_axis_reference(img.transpose(1, 2), scale, offsets, block, precision)
+    return out_t.transpose(1, 2).contiguous()
+
+
+warp_resample_op.register_kernel("cuda", _resample_cuda)
+
+
+@warp_resample_op.register_fake
+def _warp_resample_fake(img: torch.Tensor, scale: torch.Tensor, offsets: torch.Tensor,
+                        block: int, precision: str, axis: int) -> torch.Tensor:
+    return img.new_empty(img.shape)
+
+
 def resample_last_axis(img: torch.Tensor, scale: torch.Tensor, offsets: torch.Tensor,
                        block: int = 32, precision: str = "highest") -> torch.Tensor:
     """H pass: ``out[n, r, x]`` = bilinear sample of ``img[n, r, scale[n]·x +
     offsets[n, r]]``, zeros outside, the offset taken at each ``block`` of
-    rows' center row. img (N, H, W), scale (N,), offsets (N, H). A CUDA
-    tensor goes through the kernel (or raises); a CPU tensor through the
-    plain version."""
+    rows' center row. img (N, H, W), scale (N,), offsets (N, H). Calls
+    ``bas_torch::warp_resample``: a CUDA tensor goes through the kernel (or
+    raises), a CPU tensor through the plain version."""
     _check(img, scale, offsets, img.shape[1], block, precision)
-    if img.device.type == "cuda":
-        return _resample_cuda(img, scale, offsets, block, precision, axis=2)
-    return resample_last_axis_reference(img, scale, offsets, block, precision)
+    return warp_resample_op(img, scale, offsets, block, precision, 2)
 
 
 def resample_columns(img: torch.Tensor, scale: torch.Tensor, offsets: torch.Tensor,
@@ -166,10 +187,7 @@ def resample_columns(img: torch.Tensor, scale: torch.Tensor, offsets: torch.Tens
     """V pass: ``resample_last_axis`` of the transposed image, transposed
     back. img (N, H, W), scale (N,), offsets (N, W), blocks of columns."""
     _check(img, scale, offsets, img.shape[2], block, precision)
-    if img.device.type == "cuda":
-        return _resample_cuda(img, scale, offsets, block, precision, axis=1)
-    out_t = resample_last_axis_reference(img.transpose(1, 2), scale, offsets, block, precision)
-    return out_t.transpose(1, 2).contiguous()
+    return warp_resample_op(img, scale, offsets, block, precision, 1)
 
 
 def affine_warp(img: torch.Tensor, inv_mat: torch.Tensor, block: int = 32,

@@ -28,12 +28,14 @@ the streaming programs normalize in float32 and pool the concatenated
 stack map; the chunked program normalizes in the compute dtype and pools
 per stack.
 
-Not ported yet: the multi-device ``mesh``/``spatial`` options, the
-space-to-depth stem and int8 convs.
+``ChunkedVideoPredictor(mesh=...)`` spreads each chunk over the data axis
+of a device grid (``parallel/mesh.py``). Not ported yet: the ``spatial``
+option, the space-to-depth stem and int8 convs.
 """
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 from typing import Callable, Iterator
 
@@ -45,30 +47,19 @@ from ball_action_spotting_torch.core.indexes import StackIndexesGenerator
 from ball_action_spotting_torch.device import resolve_device
 from ball_action_spotting_torch.models import build_model
 from ball_action_spotting_torch.models.fold_bn import fold_bn_state_dict
+from ball_action_spotting_torch.parallel.mesh import make_mesh
+from ball_action_spotting_torch.parallel.multihost import process_slice
+from ball_action_spotting_torch.predict.host_loop import (  # noqa: F401  (re-exported)
+    iter_source_frames,
+    pad_frame,
+    run_chunk_loop,
+)
 from ball_action_spotting_torch.train.checkpoint import resolve_pretrain_variables
 
 
 def _batched(seq, size):
     for i in range(0, len(seq), size):
         yield tuple(seq[i : i + size])
-
-
-def pad_offsets(image_size, height, width) -> tuple[int, int]:
-    """Top/left offsets for a symmetric pad to the (W, H) config size."""
-    wp, hp = image_size[0] - width, image_size[1] - height
-    return hp // 2, wp // 2
-
-
-def pad_frame(frame: np.ndarray, image_size) -> np.ndarray:
-    """Symmetric zero-pad one (H, W) frame to the (W, H) config size."""
-    h, w = frame.shape
-    tw, th = image_size
-    if (w, h) == (tw, th):
-        return frame
-    top, left = pad_offsets(image_size, h, w)
-    out = np.zeros((th, tw), dtype=frame.dtype)
-    out[top : top + h, left : left + w] = frame
-    return out
 
 
 def load_inference_variables(checkpoint_path: Path | str, use_ema: bool = True,
@@ -107,23 +98,10 @@ class PredictorBase:
         self.device = resolve_device(device)
         if dw3d_use_kernel is None:
             dw3d_use_kernel = self.device.type == "cuda"
-        if (checkpoint_path is None) == (weights is None):
-            raise ValueError("pass exactly one of checkpoint_path and weights")
-        if weights is None:
-            state, params = load_inference_variables(
-                checkpoint_path, use_ema=use_ema, fold_bn=fold_bn)
-        else:
-            state, params = weights
-            if fold_bn:
-                state = fold_bn_state_dict(state)
+        self._load_options = dict(use_ema=use_ema, dtype=dtype, fold_bn=fold_bn,
+                                  dw3d_use_kernel=dw3d_use_kernel)
+        self.model, params = self.load_model(checkpoint_path, weights)
         self.params = params
-        nn_name, nn_kwargs = params["nn_module"]
-        if nn_name != "multidim_stacker":
-            raise ValueError(f"Unsupported nn_module {nn_name!r}")
-        self.model = build_model(nn_name, dtype=dtype, bn_folded=fold_bn,
-                                 dw3d_use_kernel=dw3d_use_kernel, **nn_kwargs)
-        self.model.load_state_dict(state, strict=True)
-        self.model.to(self.device).eval()
         self.tta = tta
         self.num_tta = 2 if tta else 1
         self.frame_stack_size = params["frame_stack_size"]
@@ -133,6 +111,29 @@ class PredictorBase:
         self.model_stack_size = self.model.stack_size
         self.num_stacks = self.model.num_stacks
         self.image_size = tuple(params["frames_processor"][1]["size"])  # (W, H)
+
+    def load_model(self, checkpoint_path: Path | str | None = None,
+                   weights: tuple[dict, dict] | None = None):
+        """(model on this engine's device in eval mode, params dict) from a
+        checkpoint or from ``weights``, with this engine's EMA choice,
+        compute dtype, BN fold and depthwise route."""
+        opts = self._load_options
+        if (checkpoint_path is None) == (weights is None):
+            raise ValueError("pass exactly one of checkpoint_path and weights")
+        if weights is None:
+            state, params = load_inference_variables(
+                checkpoint_path, use_ema=opts["use_ema"], fold_bn=opts["fold_bn"])
+        else:
+            state, params = weights
+            if opts["fold_bn"]:
+                state = fold_bn_state_dict(state)
+        nn_name, nn_kwargs = params["nn_module"]
+        if nn_name != "multidim_stacker":
+            raise ValueError(f"Unsupported nn_module {nn_name!r}")
+        model = build_model(nn_name, dtype=opts["dtype"], bn_folded=opts["fold_bn"],
+                            dw3d_use_kernel=opts["dw3d_use_kernel"], **nn_kwargs)
+        model.load_state_dict(state, strict=True)
+        return model.to(self.device).eval(), params
 
     def pad_frame(self, frame: np.ndarray) -> np.ndarray:
         return pad_frame(frame, self.image_size)
@@ -209,13 +210,36 @@ class StreamingPredictor(PredictorBase):
 
 
 class ChunkedVideoPredictor(PredictorBase):
-    """Batched offline engine (see module docstring)."""
+    """Batched offline engine (see module docstring).
+
+    A chunk is split into shares, one per device of the data axis of
+    ``mesh`` (``parallel/mesh.py::make_mesh``); without ``mesh`` the grid is
+    this engine's device alone and its one share is the whole chunk. Every
+    share's device encodes its part of the chunk's new stacks and predicts
+    its part of the windows, from the stack features it needs, copied from
+    the devices that encoded them (the counterpart of GSPMD's halo exchange
+    in the JAX package); the predictions are gathered in order on the first
+    device, and equal one device's. The model is copied to each distinct
+    device; each device's work is launched on its own current stream.
+
+    The chunk programs take the shares as an argument (``shares=None`` is
+    this engine's own: ``[(device, model)]`` per data device), so that the
+    fused ensemble (``predict/fused.py``) runs the same single-fold programs
+    over its folds' models. ``spatial=True``, spatial partitioning, is not
+    ported yet and raises."""
 
     def __init__(self, *args, chunk_size: int = 128, carry_features: bool = True,
-                 **kwargs):
+                 mesh=None, spatial: bool = False, **kwargs):
+        if spatial:
+            raise NotImplementedError(
+                "spatial=True (frame height over the mesh's model axis) is not ported yet; "
+                "it is queued for the next slice of the port")
+        if mesh is not None:
+            kwargs["device"] = mesh.data_devices()[0]
         super().__init__(*args, **kwargs)
         self.chunk_size = chunk_size
         self.carry_features = carry_features
+        self.mesh = mesh or make_mesh(1, 1, [self.device])
         m, step = self.model_stack_size, self.frame_stack_step
         self.stack_span = m * step
         # frames carried between chunks: stacks spanning the chunk boundary
@@ -223,6 +247,18 @@ class ChunkedVideoPredictor(PredictorBase):
         self.overlap = (self.num_stacks - 1) * self.stack_span + (m - 1) * step
         self._frame_tail = (m - 1) * step  # frames only the new stacks need
         self._feat_tail = (self.num_stacks - 1) * self.stack_span  # carried stacks
+        self.shares = self.place(self.model, self.mesh.data_devices())
+
+    @staticmethod
+    def place(model, devices) -> list:
+        """[(device, ``model`` on it)] for each of ``devices``: one copy of
+        the model per distinct device."""
+        copies = {}
+        for dev in devices:
+            if dev not in copies:
+                copies[dev] = model if next(model.parameters()).device == dev \
+                    else copy.deepcopy(model).to(dev)
+        return [(dev, copies[dev]) for dev in devices]
 
     # --- device programs -------------------------------------------------
 
@@ -241,44 +277,95 @@ class ChunkedVideoPredictor(PredictorBase):
             stacks = torch.cat([stacks, stacks.flip(2)], dim=0)
         return stacks.to(self.model.dtype) / 255.0
 
-    def encode_2d(self, x: torch.Tensor) -> torch.Tensor:
+    def encode_2d(self, x: torch.Tensor, model=None) -> torch.Tensor:
         """Normalized (tta·batch, H, W, m) stacks → (tta, batch, h, w, C)."""
-        feats = self.model.forward_2d_nhwc(x)
+        feats = (model or self.model).forward_2d_nhwc(x)
         return feats.reshape((self.num_tta, -1) + feats.shape[1:])
 
-    def head_from_feats(self, feats: torch.Tensor) -> torch.Tensor:
-        """(tta, N + (S-1)·span, h, w, C) stack features → (N, classes)
+    def head_from_feats(self, feats: torch.Tensor, model=None) -> torch.Tensor:
+        """(tta, n + (S-1)·span, h, w, C) stack features → (n, classes)
         sigmoid predictions; window p's k-th stack is feats[p + k·span]."""
-        n, span = self.chunk_size, self.stack_span
+        span = self.stack_span
+        n = feats.shape[1] - self._feat_tail
         windows = torch.stack(
             [feats[:, k * span : k * span + n] for k in range(self.num_stacks)], dim=2)
         flat = windows.reshape((self.num_tta * n,) + windows.shape[2:])  # tta-major
-        logits = self.model.forward_3d_head(flat)
+        logits = (model or self.model).forward_3d_head(flat)
         preds = torch.sigmoid(logits.float())
         return preds.reshape(self.num_tta, n, -1).mean(dim=0)
 
-    def chunk_frames(self, new_frames: torch.Tensor, carry: torch.Tensor):
-        """Frame carry: (N, H, W) u8 + (overlap, H, W) u8 → (preds, carry)."""
-        frames = torch.cat([carry, new_frames], dim=0)
-        n_stacks = self.chunk_size + self._feat_tail
-        x = self.normalize_stacks(self._stacks(frames, n_stacks))
-        return self.head_from_feats(self.encode_2d(x)), frames[-self.overlap:]
+    @staticmethod
+    def _split(count: int, shares: list) -> list:
+        """[(device, model, slice)]: the non-empty parts of ``count`` items,
+        one per share, in order."""
+        out = []
+        for d, (dev, model) in enumerate(shares):
+            part = process_slice(count, d, len(shares))
+            if part.stop > part.start:
+                out.append((dev, model, part))
+        return out
 
-    def chunk_features(self, new_frames: torch.Tensor, carry):
+    def _encode_shares(self, frames: torch.Tensor, count: int, first: int, shares: list):
+        """Stacks [0, count) of ``frames`` encoded in shares, one per
+        (device, model) of ``shares`` → [(chunk stack index of the share's
+        first, features on its device)]; stack j of ``frames`` is the
+        chunk's stack ``first + j``."""
+        reach = (self.model_stack_size - 1) * self.frame_stack_step
+        work = self._split(count, shares)
+        # every copy before any compute: a copy between devices runs on its
+        # source device's stream, behind the work already queued there
+        subs = [frames[part.start:part.stop + reach].to(dev) for dev, _, part in work]
+        return [(first + part.start,
+                 self.encode_2d(self.normalize_stacks(self._stacks(sub, part.stop - part.start)),
+                                model))
+                for (_, model, part), sub in zip(work, subs)]
+
+    @staticmethod
+    def _gather_feats(parts, lo: int, hi: int, device) -> torch.Tensor:
+        """The features of the chunk's stacks [lo, hi) from ``parts``, on
+        ``device``."""
+        pieces = []
+        for start, feats in parts:
+            a, b = max(lo, start), min(hi, start + feats.shape[1])
+            if a < b:
+                pieces.append(feats[:, a - start:b - start].to(device))
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
+
+    def _heads(self, parts, shares: list) -> torch.Tensor:
+        """Each share's part of the chunk's N windows → (N, classes) on the
+        first share's device, in order. Every share's features are copied
+        before any head is queued."""
+        inputs = [(model, self._gather_feats(parts, part.start, part.stop + self._feat_tail, dev))
+                  for dev, model, part in self._split(self.chunk_size, shares)]
+        preds = [self.head_from_feats(feats, model).to(shares[0][0]) for model, feats in inputs]
+        return preds[0] if len(preds) == 1 else torch.cat(preds, dim=0)
+
+    def chunk_frames(self, new_frames: torch.Tensor, carry: torch.Tensor, shares=None):
+        """Frame carry: (N, H, W) u8 + (overlap, H, W) u8 → (preds, carry);
+        encodes the stacks of the chunk's N + (S-1)·span windows."""
+        shares = shares or self.shares
+        frames = torch.cat([carry, new_frames], dim=0)
+        parts = self._encode_shares(frames, self.chunk_size + self._feat_tail, 0, shares)
+        return self._heads(parts, shares), frames[-self.overlap:]
+
+    def chunk_features(self, new_frames: torch.Tensor, carry, shares=None):
         """Feature carry: (N, H, W) u8 + (frame tail, feature tail) →
-        (preds, carry); encodes only the N new stacks."""
+        (preds, carry); encodes only the N new stacks. The next chunk's
+        carried features come from the last shares; they move to the first
+        share's device, whose share starts with them."""
+        shares = shares or self.shares
         tail_u8, feat_carry = carry
         frames = torch.cat([tail_u8, new_frames], dim=0)
-        x = self.normalize_stacks(self._stacks(frames, self.chunk_size))
-        feats = torch.cat([feat_carry, self.encode_2d(x)], dim=1)
-        preds = self.head_from_feats(feats)
-        return preds, (frames[-self._frame_tail:], feats[:, -self._feat_tail:])
+        n, tail = self.chunk_size, self._feat_tail
+        parts = [(0, feat_carry)] + self._encode_shares(frames, n, tail, shares)
+        new_feats = self._gather_feats(parts, n, n + tail, shares[0][0])
+        return self._heads(parts, shares), (frames[-self._frame_tail:], new_feats)
 
-    def bootstrap(self, first_frames: torch.Tensor):
+    def bootstrap(self, first_frames: torch.Tensor, model=None):
         """First ``overlap`` frames → the initial feature carry (frame tail,
         the features of stacks 0..feat_tail-1)."""
         x = self.normalize_stacks(self._stacks(first_frames, self._feat_tail))
-        return first_frames[-self._frame_tail:], self.encode_2d(x)
+        return first_frames[-self._frame_tail:], self.encode_2d(x, model)
 
     # --- host loop -------------------------------------------------------
 
@@ -286,6 +373,10 @@ class ChunkedVideoPredictor(PredictorBase):
         """Device carry from the first ``overlap`` (padded, uint8) frames."""
         frames = self.upload(first_frames_u8)
         return self.bootstrap(frames) if self.carry_features else frames
+
+    def chunk_call(self) -> Callable:
+        """The chunk program ``predict_video`` runs: feature or frame carry."""
+        return self.chunk_features if self.carry_features else self.chunk_frames
 
     def predict_video(
         self,
@@ -295,10 +386,9 @@ class ChunkedVideoPredictor(PredictorBase):
         """frames: iterator of (frame_index, grayscale uint8 frame) in order.
         Returns (frame_indexes, raw sigmoid predictions) over the contiguous
         range the streaming loop covers."""
-        chunk = self.chunk_features if self.carry_features else self.chunk_frames
         with torch.inference_mode():
             return run_chunk_loop(
-                chunk,
+                self.chunk_call(),
                 indexes_generator=self.indexes_generator,
                 chunk_size=self.chunk_size,
                 overlap=self.overlap,
@@ -309,70 +399,6 @@ class ChunkedVideoPredictor(PredictorBase):
                 put_new=self.upload,
                 put_carry=self.init_carry,
             )
-
-
-def run_chunk_loop(
-    chunk_call: Callable,
-    *,
-    indexes_generator: StackIndexesGenerator,
-    chunk_size: int,
-    overlap: int,
-    image_size: tuple[int, int],
-    num_classes: int,
-    frames: Iterator[tuple[int, np.ndarray]],
-    frame_count: int,
-    put_new: Callable,
-    put_carry: Callable,
-) -> tuple[list[int], np.ndarray]:
-    """Host side of the chunked engine: frame intake, symmetric padding,
-    carry bootstrap, chunk dispatch.
-
-    ``chunk_call(new_frames, carry) -> (preds, new_carry)`` is the device
-    program; ``put_new``/``put_carry`` stage host uint8 arrays onto the
-    device. Frames [0, first_needed) are decoded and dropped; past the end
-    of the video the last padded frame repeats."""
-    gen = indexes_generator
-    min_predict = gen.clip_index(0, frame_count, 1)
-    max_predict = gen.clip_index(frame_count, frame_count, 1)
-    if max_predict < min_predict:  # video shorter than one window
-        return [], np.zeros((0, num_classes), np.float32)
-    predict_indexes = list(range(min_predict, max_predict + 1))
-    n = chunk_size
-    tw, th = image_size
-
-    frames_iter = iter(frames)
-    last_frame = np.zeros((th, tw), dtype=np.uint8)
-
-    def take_frames(count: int) -> np.ndarray:
-        """Next ``count`` padded frames; repeats the last frame past EOF."""
-        nonlocal last_frame
-        out = np.empty((count, th, tw), dtype=np.uint8)
-        for i in range(count):
-            try:
-                _, frame = next(frames_iter)
-                last_frame = pad_frame(np.asarray(frame), image_size)
-            except StopIteration:
-                pass
-            out[i] = last_frame
-        return out
-
-    take_frames(predict_indexes[0] - gen.behind)
-    carry = put_carry(take_frames(overlap))
-
-    predictions: list[torch.Tensor] = []
-    total = len(predict_indexes)
-    for _ in range(0, total, n):
-        preds, carry = chunk_call(put_new(take_frames(n)), carry)
-        predictions.append(preds)
-
-    raw = torch.cat(predictions, dim=0).cpu().numpy()
-    return predict_indexes, raw[:total]
-
-
-def iter_source_frames(source) -> Iterator[tuple[int, np.ndarray]]:
-    """(index, frame) sequential-decode iterator over a FrameSource."""
-    for idx in range(source.num_frames):
-        yield idx, source.fetch_frame()
 
 
 def get_raw_predictions(predictor: StreamingPredictor, source,

@@ -1,5 +1,5 @@
-"""Training engine: the fit loop on one device (port of the JAX package's
-``train/engine.py`` without its mesh, pipeline-parallel and multihost code).
+"""Training engine: the fit loop (port of the JAX package's
+``train/engine.py`` without its tensor- and pipeline-parallel code).
 
 Builds the model, loss, optimizer and schedule from a reference-style
 config dict, runs the warmup and train stages as one fused rate schedule,
@@ -7,6 +7,17 @@ accumulates per-class metrics on the host, logs each epoch to
 ``log.txt``/``log.csv``, checkpoints the best-by-val-AP EMA weights as
 ``BASTPU01`` ``.ckpt`` files (which both packages' predictors read) and
 keeps a resume point after every epoch.
+
+Under a ``torch.distributed`` process group (``parallel/multihost.py``, one
+process per device, launched by ``torchrun``) the trainer is data parallel
+as the JAX trainer is across hosts: each process's loader yields its local
+rows of the config's global ``batch_size`` (``multihost.local_batch_size``,
+``multihost.BatchShard``); a batch with fewer rows on some process is
+padded to the largest by cycling its rows; every process must run the same
+number of steps, and unequal counts raise on every process before the first
+step; validation outputs are gathered and the padding rows dropped from the
+epoch metrics; only the primary process writes ``log.txt``, ``log.csv``,
+checkpoints and the resume point.
 """
 
 from __future__ import annotations
@@ -27,6 +38,8 @@ from ball_action_spotting_torch.models import build_model, init_train_weights
 from ball_action_spotting_torch.ops.augment import AugmentConfig
 from ball_action_spotting_torch.ops.losses import build_loss
 from ball_action_spotting_torch.ops.mixup import Mixup
+from ball_action_spotting_torch.parallel import multihost
+from ball_action_spotting_torch.parallel.mesh import pad_batch_to_devices
 from ball_action_spotting_torch.train import checkpoint as ckpt_lib
 from ball_action_spotting_torch.train.metrics import Accuracy, AveragePrecision
 from ball_action_spotting_torch.train.optim import build_optimizer
@@ -41,14 +54,15 @@ from ball_action_spotting_torch.train.steps import (
 RESUME_FILE = "train_state.pt"
 
 
-def _setup_file_logging(save_dir: Path) -> logging.Logger:
+def _setup_file_logging(save_dir: Path, to_file: bool = True) -> logging.Logger:
     lg = logging.getLogger(f"bas_torch.train.{save_dir}")
     lg.setLevel(logging.INFO)
     lg.handlers.clear()
     save_dir.mkdir(parents=True, exist_ok=True)
-    fh = logging.FileHandler(save_dir / "log.txt")
-    fh.setFormatter(logging.Formatter("%(asctime)s %(levelname)s: %(message)s"))
-    lg.addHandler(fh)
+    if to_file:  # under a process group only the primary owns log.txt
+        fh = logging.FileHandler(save_dir / "log.txt")
+        fh.setFormatter(logging.Formatter("%(asctime)s %(levelname)s: %(message)s"))
+        lg.addHandler(fh)
     sh = logging.StreamHandler()
     sh.setFormatter(logging.Formatter("%(message)s"))
     lg.addHandler(sh)
@@ -61,8 +75,9 @@ class CsvLogger:
     carry no val metrics), so the file is rewritten with the union of
     fieldnames."""
 
-    def __init__(self, path: Path):
+    def __init__(self, path: Path, write: bool = True):
         self.path = Path(path)
+        self.write = write
         self._rows: list[dict] = []
         self._fieldnames: list[str] = []
 
@@ -71,6 +86,8 @@ class CsvLogger:
         for key in row:
             if key not in self._fieldnames:
                 self._fieldnames.append(key)
+        if not self.write:
+            return
         with open(self.path, "w", newline="") as f:
             writer = csv.DictWriter(f, fieldnames=self._fieldnames)
             writer.writeheader()
@@ -103,8 +120,10 @@ class Trainer:
         self.config = config
         self.classes = classes
         self.save_dir = Path(save_dir)
-        self.logger = _setup_file_logging(self.save_dir)
-        self.csv_logger = CsvLogger(self.save_dir / "log.csv")
+        self._nproc = multihost.process_count()
+        self._primary = multihost.is_primary()
+        self.logger = _setup_file_logging(self.save_dir, to_file=self._primary)
+        self.csv_logger = CsvLogger(self.save_dir / "log.csv", write=self._primary)
         self.seed = seed
         self.compute_dtype = compute_dtype
 
@@ -169,21 +188,61 @@ class Trainer:
     # --- epochs -----------------------------------------------------------
 
     def _device_batches(self, loader, epoch: int):
+        """Yields (frames, targets, valid) on the device. Under a process
+        group each batch is padded, by cycling its rows, to the largest
+        count any process has for that step; ``valid`` is this process's
+        count of real rows."""
         iterator = loader.epoch(epoch) if hasattr(loader, "epoch") else iter(loader)
-        return prefetch_to_device(iterator, self.device)
+        valids: list[int] = []
+
+        def padded():
+            for frames, targets in iterator:
+                valid = frames.shape[0]
+                if self._nproc > 1:
+                    most = int(multihost.allgather(valid).max())
+                    frames, targets, valid = pad_batch_to_devices(frames, targets, most)
+                valids.append(valid)
+                yield frames, targets
+
+        for frames, targets in prefetch_to_device(padded(), self.device):
+            yield frames, targets, valids.pop(0)
+
+    def _assert_equal_steps(self, loader, what: str) -> None:
+        """Every process must make the same number of steps, each of which
+        joins the others in collectives: one process waiting at a step the
+        others never reach hangs them all. Compare the loaders' lengths up
+        front and raise on every process instead."""
+        if self._nproc <= 1:
+            return
+        try:
+            local = len(loader)
+        except TypeError:
+            raise TypeError(f"{what} under a process group needs a sized loader "
+                            "(len(loader)), so that equal step counts can be checked "
+                            "before the first collective") from None
+        counts = multihost.allgather(local).reshape(-1)
+        if len({int(c) for c in counts}) > 1:
+            raise RuntimeError(
+                f"{what}: unequal per-process batch counts {counts.tolist()} would hang "
+                "the process group at the first missing collective. Shard the data "
+                "with multihost.BatchShard (or process_slice_even) so that every "
+                "process makes the same number of steps")
 
     def train_epoch(self, loader, epoch: int) -> dict:
         if self.state is None:
             raise RuntimeError("call init_state first")
+        self._assert_equal_steps(loader, "train_epoch")
         losses = []
         t0 = time.time()
         n = 0
-        for frames, targets in self._device_batches(loader, epoch):
+        for frames, targets, valid in self._device_batches(loader, epoch):
             aux = self.train_step(self.state, frames, targets, self.seed + 1)
             losses.append(aux["loss"])
-            n += frames.shape[0]
+            n += valid
         losses = [float(loss) for loss in losses]
         dt = time.time() - t0
+        # every process steps together: the group's throughput is the sum
+        n = int(multihost.allgather(n).sum()) if self._nproc > 1 else n
         return {
             "train_loss": float(np.mean(losses)) if losses else float("nan"),
             "train_samples_per_sec": n / dt if dt > 0 else 0.0,
@@ -192,16 +251,28 @@ class Trainer:
     def val_epoch(self, loader, epoch: int = 0) -> dict:
         if self.state is None:
             raise RuntimeError("call init_state first")
+        self._assert_equal_steps(loader, "val_epoch")
         metrics = [AveragePrecision(self.classes),
                    Accuracy(self.classes, self.config.get("metric_accuracy_threshold", 0.5))]
         losses = []
-        for frames, targets in self._device_batches(loader, epoch):
+        for frames, targets, valid in self._device_batches(loader, epoch):
             out = self.val_step(self.state, frames, targets)
-            losses.append(float(out["loss"]))
-            step_output = {"prediction": out["prediction"].cpu().numpy(),
-                           "target": out["target"].cpu().numpy()}
+            pred = out["prediction"].cpu().numpy()
+            targ = out["target"].cpu().numpy()
+            loss = float(out["loss"])
+            if self._nproc > 1:
+                # every process's rows, its padding rows dropped; the loss
+                # of the padded global batch, as the JAX trainer's
+                valids = multihost.allgather(valid).reshape(-1)
+                preds, targs = multihost.allgather(pred), multihost.allgather(targ)
+                pred = np.concatenate([p[:v] for p, v in zip(preds, valids)])
+                targ = np.concatenate([t[:v] for t, v in zip(targs, valids)])
+                loss = float(multihost.allgather(loss).mean())
+            else:
+                pred, targ = pred[:valid], targ[:valid]
+            losses.append(loss)
             for m in metrics:
-                m.update(step_output)
+                m.update({"prediction": pred, "target": targ})
         results = {"val_loss": float(np.mean(losses)) if losses else float("nan")}
         for m in metrics:
             results.update(m.results("val_"))
@@ -235,16 +306,18 @@ class Trainer:
             if stage == "train" and val_loader is not None:
                 row.update(self.val_epoch(val_loader, epoch))
                 score = row.get(self.monitor, -np.inf)
-                self.ckpt_manager.save(epoch, score, self._params_dict(),
-                                       self.variables(ema=True), self.variables(ema=False))
+                if self._primary:  # one writer under a process group
+                    self.ckpt_manager.save(epoch, score, self._params_dict(),
+                                           self.variables(ema=True), self.variables(ema=False))
                 if score > best.get(self.monitor, -np.inf):
                     best = dict(row)
             self.logger.info(" ".join(f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}"
                                       for k, v in row.items()))
             self.csv_logger.log(row)
-            if resume:
+            if resume and self._primary:
                 ckpt_lib.save_train_state(resume_path, self.state, epoch, best)
-        if resume and resume_path.exists() and epochs:
+        multihost.barrier()  # every process has read the resume point
+        if resume and self._primary and resume_path.exists() and epochs:
             resume_path.unlink()  # run completed; drop the resume point
         return best
 

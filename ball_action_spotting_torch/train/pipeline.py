@@ -24,6 +24,7 @@ from ball_action_spotting_torch.data.loader import ClipLoader
 from ball_action_spotting_torch.domains.base import Domain
 from ball_action_spotting_torch.ops.augment import AugmentConfig
 from ball_action_spotting_torch.ops.mixup import make_mixup_fn
+from ball_action_spotting_torch.parallel import multihost
 from ball_action_spotting_torch.train.checkpoint import (
     get_best_checkpoint_path,
     resolve_pretrain_variables,
@@ -118,16 +119,24 @@ def train_stage(config: dict, domain: Domain, save_dir: Path,
                 pretrain_variables: Optional[dict] = None,
                 video_info_fn=None, videos_data=None, seed: int = 0,
                 max_saves: int = 1, device: str | torch.device = "cuda") -> dict:
-    """One full stage-set training run (warmup + train) for one fold."""
+    """One full stage-set training run (warmup + train) for one fold. Under
+    a process group of several processes each loader reads the process's
+    rows of the global batches (``multihost.BatchShard``)."""
     train_dataset, val_dataset = build_datasets(
         config, domain, train_games, val_games, game2fold,
         video_info_fn=video_info_fn, videos_data=videos_data, base_seed=seed,
     )
     print(f"Train dataset len {len(train_dataset)}")
     print(f"Val dataset len {len(val_dataset)}")
+    batch = config["batch_size"]
+    if multihost.in_multihost():
+        # each process reads its rows of every global batch
+        train_dataset = multihost.BatchShard(train_dataset, batch)
+        val_dataset = multihost.BatchShard(val_dataset, batch)
+        batch = multihost.local_batch_size(batch)
     workers = num_decode_workers(config)
-    train_loader = ClipLoader(train_dataset, config["batch_size"], num_workers=workers)
-    val_loader = ClipLoader(val_dataset, config["batch_size"], num_workers=workers)
+    train_loader = ClipLoader(train_dataset, batch, num_workers=workers)
+    val_loader = ClipLoader(val_dataset, batch, num_workers=workers)
     trainer = Trainer(config, list(domain.classes), save_dir, augment=AugmentConfig(),
                       mixup=make_mixup_fn(config.get("mixup_params")), seed=seed,
                       max_saves=max_saves, device=device)

@@ -11,7 +11,9 @@ averaged; the BN running statistics carry from one microbatch to the next.
 Every random draw of a step comes from generators seeded by (seed, step):
 a CPU generator for the per-clip augmentation values and mixup, and one on
 the frames' device for the noise, dropout and drop-path masks. A resumed
-run therefore draws what an uninterrupted one would have.
+run therefore draws what an uninterrupted one would have. Under a process
+group the step is data parallel and equals one process's step on the
+global batch (``make_train_step``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ball_action_spotting_torch.models.effnetv2 import set_dropout_generator
 from ball_action_spotting_torch.ops.augment import (
@@ -28,6 +31,12 @@ from ball_action_spotting_torch.ops.augment import (
     sample_augment_params,
 )
 from ball_action_spotting_torch.ops.mixup import Mixup
+from ball_action_spotting_torch.parallel.multihost import (
+    global_batch_from_local,
+    in_process_group,
+    process_count,
+    process_index,
+)
 from ball_action_spotting_torch.train.optim import set_lr
 from ball_action_spotting_torch.train.schedules import Schedule
 from ball_action_spotting_torch.train.state import TrainState
@@ -46,6 +55,21 @@ def step_generators(seed: int, step: int, device) -> tuple[torch.Generator, torc
     return host, dev
 
 
+def average_gradients(model: torch.nn.Module, count: int) -> None:
+    """Average the parameters' gradients over the process group: one
+    all-reduce of every gradient flattened into one float32 buffer."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    dist.all_reduce(flat)
+    flat /= count
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 def make_train_step(
     loss_fn: Callable,
     schedule: Schedule,
@@ -56,16 +80,40 @@ def make_train_step(
 ):
     """Returns ``train_step(state, frames_u8, targets, seed) -> aux``, which
     updates ``state`` in place. aux holds the mean loss and the sigmoid
-    predictions and targets for the host-side epoch metrics."""
+    predictions and targets for the host-side epoch metrics.
 
-    def prepare(frames, targets, host_gen, dev_gen):
+    Under a ``torch.distributed`` process group the step is data parallel:
+    each process passes its local rows, all of the same count, and the
+    global batch is the processes' rows one after another. Every random
+    draw is made for the global batch and each process takes its rows (the
+    augmentation, the drop-path and dropout masks); mixup pairs rows across
+    processes, so the augmented batch is gathered before it and each
+    process keeps its rows of the mixed batch; the BatchNorm statistics are
+    the global batch's (``models/effnetv2.py::BatchNormAct``); the gradients
+    and the reported loss are averaged over the processes. The step then
+    equals one process's step on the global batch. With ``iter_size`` > 1
+    each microbatch's global batch is the processes' rows of that
+    microbatch."""
+
+    def prepare(frames, targets, host_gen, dev_gen, shard):
         x = normalize_frames(frames)
+        index, count = shard or (0, 1)
+        b = x.shape[0]
+        rows = slice(index * b, (index + 1) * b)
         if augment is not None:
-            b, t, h, w = x.shape
-            params = sample_augment_params(host_gen, dev_gen, b, t, h, w, augment)
+            _, t, h, w = x.shape
+            params = sample_augment_params(host_gen, dev_gen, count * b, t, h, w, augment)
+            if shard is not None:
+                params = {k: v[rows] for k, v in params.items()}
             x = apply_augment(x, params, augment)
         if mixup is not None:
-            x, targets = mixup.apply(x, targets, mixup.sample(host_gen, *x.shape[-2:]))
+            draw = mixup.sample(host_gen, *x.shape[-2:])
+            if shard is None:
+                x, targets = mixup.apply(x, targets, draw)
+            else:
+                x, targets = mixup.apply(global_batch_from_local(x),
+                                         global_batch_from_local(targets), draw)
+                x, targets = x[rows], targets[rows]
         return x, targets
 
     def train_step(state: TrainState, frames: torch.Tensor, targets: torch.Tensor,
@@ -75,21 +123,26 @@ def make_train_step(
         if b % iter_size:
             raise ValueError(f"batch {b} is not a multiple of iter_size {iter_size}")
         micro = b // iter_size
+        shard = (process_index(), process_count()) if in_process_group() else None
         host_gen, dev_gen = step_generators(seed, state.step, frames.device)
-        set_dropout_generator(model, dev_gen)
+        set_dropout_generator(model, dev_gen, shard)
         set_lr(state.optimizer, schedule(state.step))
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=frames.device)
         outs, tgts = [], []
         for i in range(iter_size):
             part = slice(i * micro, (i + 1) * micro)
-            x, tgt = prepare(frames[part], targets[part], host_gen, dev_gen)
+            x, tgt = prepare(frames[part], targets[part], host_gen, dev_gen, shard)
             out = model(x)
             loss = loss_fn(out, tgt)
             (loss / iter_size).backward()
             loss_sum += loss.detach()
             outs.append(out.detach())
             tgts.append(tgt)
+        if shard is not None:
+            average_gradients(model, shard[1])
+            dist.all_reduce(loss_sum)
+            loss_sum /= shard[1]
         state.optimizer.step()
         state.step += 1
         state.ema_update(ema_decay)

@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): kernels, the
 flagship chunked inference path, the flagship training path, the rest of
-the four-stage recipe with its evaluation, and the serving path.
+the four-stage recipe with its evaluation, the serving path, and the
+fold-fused ensemble, the sealed export and the parallel paths.
 
     python3 chip_smoke.py
 
@@ -14,6 +15,8 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    computes the same function (CUDA events around the call, median of 10:
    ``kernel_ms``, what a caller pays) and the kernel's own device time
    (torch.profiler over 10 calls, median of per-call sums: ``device_ms``;
+   ``direct_ms`` times the op's CUDA function called directly, without the
+   ``torch.library`` dispatcher;
    the serving shapes' rows take each kernel's median over the launches
    the profiler saw, ``device_ms_method``). Prints one JSON
    line per kernel and shape with its bound on an H100 SXM. GeM at the
@@ -82,10 +85,31 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    shapes warmup did not run; tick latency of both engines at buckets
    1, 4, 8 and 16 (information only). Each path runs with the launch
    counters set to 0 and must launch GeM and the depthwise conv.
-7. Prints the ``kernels`` JSON line (one row per kernel and main path:
+7. The fold-fused ensemble, the sealed export and the parallel paths, at
+   the flagship's full width on the inference phase's 414-frame video (bf16,
+   TTA on), each with the launch counters set to 0: ``FusedFoldsPredictor``
+   over 7 folds of seeded weights (BN calibrated) against each fold's
+   single-fold engine (launches GeM 7×3, dwconv3d 7×12; wall time of the
+   fused pass against 7 single-fold passes on the same host frames); the
+   flagship chunked engine exported with ``torch.export`` on the card and
+   reloaded in a fresh process that must not import the model code,
+   against the live frame-carry engine (its launches counted there, ms per
+   chunk exported and live), and a small checkpoint sealed on the CPU by
+   the export CLI's own route, which must hold the depthwise op, run on the
+   card against the CPU. The parallel paths take every visible card, or
+   the one card twice: data-parallel predict on an N×1 grid against one
+   device, fold-parallel on a 1×N grid (3 folds padded to 4 on one card, 7
+   padded to 8 on four) against the fused engine, each timed and traced
+   for each card's idle share; then 3 float32 flagship train steps
+   (augmentation and mixup on) in N processes over NCCL (N the visible
+   cards, 1 on one card) against the same steps in one process without a
+   process group, the warp and GeM launched, and ms per bf16 step at 4
+   rows per card against 4 rows on one card. On one card, equality across
+   more than one rank is the CPU tests' (``tests/test_torch_parallel.py``).
+8. Prints the ``kernels`` JSON line (one row per kernel and main path:
    GeM on the inference and on the training path, the depthwise conv, and
    the warp's H and V passes, each with its own launches and bound, and
-   ``launches_by_path``: the recipe and serving phases' paths of the same
+   ``launches_by_path``: the recipe, serving and phase-7 paths of the same
    kind, each of which must launch it; then GeM and the depthwise conv at
    the serving shapes, each with the serving paths), then the device line
    last.
@@ -97,6 +121,8 @@ otherwise run float32 convolutions in TF32.
 
 from __future__ import annotations
 
+import gc
+import hashlib
 import json
 import math
 import os
@@ -113,14 +139,16 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.multiprocessing as mp
 
 from ball_action_spotting_torch.cli import (
     action_evaluate,
     action_predict,
     action_train,
     ball_ensemble,
+    export_model,
 )
-from ball_action_spotting_torch.convert import flax_tree_to_state_dict
+from ball_action_spotting_torch.convert import flax_tree_to_state_dict, state_dict_to_flax_tree
 from ball_action_spotting_torch.core.indexes import StackIndexesGenerator
 from ball_action_spotting_torch.core.postprocess import raw_predictions_to_actions
 from ball_action_spotting_torch.core.sampling import ball_sampling_weights
@@ -156,7 +184,16 @@ from ball_action_spotting_torch.ops.dwconv3d import (
 )
 from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_reference
 from ball_action_spotting_torch.ops.losses import FocalLoss
+from ball_action_spotting_torch.ops.mixup import Mixup
+from ball_action_spotting_torch.parallel import multihost
+from ball_action_spotting_torch.parallel.mesh import make_mesh
+from ball_action_spotting_torch.parallel.multihost import process_slice
 from ball_action_spotting_torch.predict.__main__ import main as ball_predict
+from ball_action_spotting_torch.predict.export import (
+    ExportedChunkPredictor,
+    export_chunked_predictor,
+)
+from ball_action_spotting_torch.predict.fused import FusedFoldsPredictor
 from ball_action_spotting_torch.predict.multistream import device_state_tick_ms, device_tick_ms
 from ball_action_spotting_torch.predict.pipeline import predict_games
 from ball_action_spotting_torch.predict.server import (
@@ -170,7 +207,11 @@ from ball_action_spotting_torch.predict.streaming import (
     StreamingPredictor,
     get_raw_predictions,
 )
-from ball_action_spotting_torch.train.checkpoint import get_best_checkpoint_path, load_checkpoint
+from ball_action_spotting_torch.train.checkpoint import (
+    get_best_checkpoint_path,
+    load_checkpoint,
+    save_checkpoint,
+)
 from ball_action_spotting_torch.train.engine import Trainer
 from ball_action_spotting_torch.train.optim import build_optimizer
 from ball_action_spotting_torch.train.pipeline import resolve_stage_pretrain, train_stage
@@ -502,6 +543,7 @@ def check_gem(dev, shape: tuple, path: str, per_kernel: bool = False) -> dict:
         "name": "gem_pool", "path": path, "shape": list(x.shape), "dtype": "bfloat16",
         "max_abs_diff": err, "tolerance": tol,
         "kernel_ms": median_ms(lambda: gem_pool(x, p)),
+        "direct_ms": median_ms(lambda: gem_ops.gem_pool_cuda(x, p)),
         "device_ms": (device_ms_per_kernel(lambda: gem_pool(x, p), "gem_", launches)
                       if per_kernel else device_ms(lambda: gem_pool(x, p), "gem_",
                                                    per_call=launches)),
@@ -543,6 +585,7 @@ def check_dwconv(dev, num_tta: int, n: int | None = None, path: str = "inference
         "dtype": "bfloat16",
         "max_abs_diff": err, "tolerance": tol, "library_max_abs_diff": lib_err,
         "kernel_ms": median_ms(lambda: dwconv3d(x, k)),
+        "direct_ms": median_ms(lambda: dw_ops._dwconv3d_cuda_route(x, k)),
         "device_ms": (device_ms_per_kernel(lambda: dwconv3d(x, k), "dwconv3d_kernel", 1)
                       if per_kernel else device_ms(lambda: dwconv3d(x, k), "dwconv3d_kernel")),
         "device_ms_method": "per_kernel_median" if per_kernel else "per_call_sum",
@@ -708,6 +751,11 @@ def check_warp(dev, axis: str, dtype) -> dict:
     shift = 60.0 * torch.rand(n, generator=g, device=dev) - 30.0
     offsets = shear[:, None] * torch.arange(length, device=dev)[None] + shift[:, None]
     precision = "bfloat16" if dtype == torch.bfloat16 else "highest"
+    pass_axis = 2 if axis == "rows" else 1
+
+    def direct():
+        return warp_ops._resample_cuda(img, scale, offsets, 32, precision, pass_axis)
+
     if axis == "rows":
         def kernel():
             return warp_ops.resample_last_axis(img, scale, offsets, 32, precision)
@@ -733,7 +781,8 @@ def check_warp(dev, axis: str, dtype) -> dict:
     row = {"name": "warp_resample", "pass": "H" if axis == "rows" else "V",
            "shape": [n, h, w], "dtype": str(dtype).replace("torch.", ""),
            "max_abs_diff": err, "tolerance": tol,
-           "kernel_ms": median_ms(kernel), "device_ms": device_ms(kernel, "resample"),
+           "kernel_ms": median_ms(kernel), "direct_ms": median_ms(direct),
+           "device_ms": device_ms(kernel, "resample"),
            "plain_ms": median_ms(plain, reps=3, warmup=1)}
     # the library call: one bmm of the row blocks with the interpolation
     # matrices, built before the clock starts
@@ -775,11 +824,12 @@ def calibrate_bn(model, x) -> None:
         h.remove()
 
 
-def flagship_weights(dev, frames: np.ndarray) -> dict:
+def flagship_weights(dev, frames: np.ndarray, seed: int = 0) -> dict:
     model = build_model("multidim_stacker", **NN_KWARGS)
-    init_weights(model, torch.Generator().manual_seed(0))
+    init_weights(model, torch.Generator().manual_seed(seed))
     model.to(dev).eval()
-    clip = torch.from_numpy(frames[0:30:2][None]).to(dev).float() / 255.0
+    n = NN_KWARGS["num_frames"]
+    clip = torch.from_numpy(frames[0:2 * n:2][None]).to(dev).float() / 255.0
     calibrate_bn(model, clip)
     return {k: v.detach().cpu() for k, v in model.state_dict().items()}
 
@@ -812,18 +862,23 @@ def device_fps(predictor, frames: np.ndarray, chunks: int = 6) -> float:
     return chunks * CHUNK / (time.perf_counter() - t0)
 
 
+def union_us(intervals: list) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, reach = 0.0, -math.inf
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
 def device_time(prof, reps: int, width: int, top: int) -> tuple[float, float, list]:
     """(busy ms, summed kernel ms, top kernels) per repetition of a profiled
     run. Busy time is the union of the device activities' intervals: cuDNN
     may run kernels on several streams at once, so their sum can exceed the
     wall time."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, reach = 0.0, -math.inf
-    for start, end in spans:
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
+    busy_us = union_us([(e.time_range.start, e.time_range.end) for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA])
     kernels = [e for e in prof.key_averages()  # device-side activities only
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0]
@@ -875,9 +930,10 @@ def agree(name: str, a: np.ndarray, b: np.ndarray, atol: float) -> float:
     return diff
 
 
-def flagship(dev, card: str) -> tuple[dict, tuple, np.ndarray]:
-    """The chunked inference phase; returns its launches, and the seeded
-    weights and synthetic video, which the serving phase uses again."""
+def flagship(dev, card: str) -> tuple[dict, tuple, np.ndarray, np.ndarray]:
+    """The chunked inference phase; returns its launches, the seeded
+    weights and synthetic video, which the serving and ensemble phases use
+    again, and the main path's predictions."""
     num_frames = 3 * CHUNK + 30  # 3 chunks of predictions
     src = SyntheticSource(num_frames=num_frames, height=HEIGHT, width=WIDTH, seed=0,
                           events={100: 0, 200: 1, 300: 0})
@@ -945,7 +1001,7 @@ def flagship(dev, card: str) -> tuple[dict, tuple, np.ndarray]:
     log({"phase": "fps", **fps})
     profile_chunks(predictor(dw3d_use_kernel=True), frames)
     profile_chunks(main, frames)
-    return launches, weights, frames
+    return launches, weights, frames, raw_main
 
 
 # --------------------------------------------------------------- phase 4 ---
@@ -1771,6 +1827,431 @@ def serving(dev, weights, video: np.ndarray, card: str) -> tuple[dict, dict]:
     return launches, rows
 
 
+# --------------------------------------------------------------- phase 7 ---
+
+FOLDS = 7                 # the challenge submission's fold models (domains/ball.py)
+FOLD_PARALLEL_FOLDS = 3   # on a 1×2 grid: padded to 4 by repeating fold 0
+DP_TRAIN_STEPS = 3
+DP_LOSS_ATOL = 1e-6       # float32 losses, world size 1 over NCCL vs no process group
+DP_LOSS_RTOL = 1e-5       # float32 losses, N ranks vs one process (the CPU tests' rtol)
+DP_TIMED_STEPS = 5
+CHUNKS = 3                # the 414-frame video's chunks of 128 predictions
+DW_PER_CHUNK = 4          # one dwconv3d launch per 3D block
+EXPORT_PROBE = r"""
+import json, sys, time
+import numpy as np
+import torch
+from ball_action_spotting_torch.ops import KERNELS
+from ball_action_spotting_torch.predict.export import ExportedChunkPredictor
+
+art, frames_path, out_path, device = sys.argv[1:5]
+frames = np.load(frames_path)
+t0 = time.perf_counter()
+sealed = ExportedChunkPredictor(art, device=device)
+load_s = time.perf_counter() - t0
+n = sealed.chunk_size
+sealed.predict_video(iter(enumerate(frames[:n + 30])), n + 30)  # warm-up
+for k in KERNELS:
+    k.reset_counts()
+on_card = device.startswith("cuda")
+sync = torch.cuda.synchronize if on_card else (lambda: None)
+sync()
+t0 = time.perf_counter()
+idx, raw = sealed.predict_video(iter(enumerate(frames)), len(frames))
+seconds = time.perf_counter() - t0
+launches = {k.name: k.launches for k in KERNELS}
+new = torch.from_numpy(frames[:n]).to(device)
+carry = torch.from_numpy(frames[:sealed.overlap]).to(device)
+times = []
+with torch.inference_mode():
+    for i in range(7):
+        sync()
+        t1 = time.perf_counter()
+        if on_card:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        sealed.chunk(new, carry)
+        if on_card:
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            times.append((time.perf_counter() - t1) * 1e3)
+np.save(out_path, raw)
+targets = [str(node.target) for node in sealed.program.graph.nodes if node.op == "call_function"]
+print(json.dumps({"models_imported": "ball_action_spotting_torch.models" in sys.modules,
+                  "op_nodes": {name: targets.count(f"bas_torch.{name}.default")
+                               for name in ("gem_pool", "dwconv3d", "warp_resample")},
+                  "jax_imported": any(m.split(".")[0] in ("jax", "ball_action_spotting_tpu")
+                                      for m in sys.modules),
+                  "launches": launches, "seconds": seconds, "load_seconds": load_s,
+                  "ms_per_chunk": sorted(times[2:])[2], "predictions": len(idx)}))
+"""
+
+
+def expect_launches(name: str, got: dict, gem: int, dw: int) -> None:
+    if got["gem"] != gem or got["dwconv3d"] != dw:
+        fail(f"{name}: launched GeM {got['gem']} and dwconv3d {got['dwconv3d']} times, "
+             f"expected {gem} and {dw}")
+
+
+def chunk_ms(call, new, carry, reps: int = 5) -> float:
+    """Median CUDA-event ms of one chunk program on frames on the card."""
+    with torch.inference_mode():
+        return median_ms(lambda: call(new, carry), reps=reps)
+
+
+def fused_phase(dev, folds: list, frames: np.ndarray, card: str, launches: dict):
+    """7 fold models in one pass against each fold's single-fold engine;
+    wall time of the fused pass against 7 single-fold passes."""
+    fused = FusedFoldsPredictor(weights=folds, device=dev, chunk_size=CHUNK, tta=True)
+    run_video(fused, frames[:CHUNK + 30])  # warm-up
+    idx, raw, secs_fused = counted("fused", launches, lambda: run_video(fused, frames))
+    expect_launches("fused", launches["fused"], FOLDS * CHUNKS, FOLDS * CHUNKS * DW_PER_CHUNK)
+    singles = [ChunkedVideoPredictor(weights=w, device=dev, chunk_size=CHUNK, tta=True)
+               for w in folds]
+    runs = [run_video(single, frames) for single in singles]
+    if (idx != runs[0][0] or raw.shape != (len(idx), FOLDS, 2)
+            or not np.isfinite(raw).all()):
+        fail(f"fused: predictions of shape {raw.shape} over {len(idx)} frames")
+    diffs = [agree(f"fused_fold_{i}_vs_single_fold", raw[:, i], r, PRED_BF16_ATOL)
+             for i, (_, r, _) in enumerate(runs)]
+    secs_single = sum(secs for _, _, secs in runs)
+    log({"phase": "fused", "card": card, "folds": FOLDS, "frames": len(frames),
+         "fused_seconds": secs_fused, "seven_single_passes_seconds": secs_single,
+         "fused_over_single_passes": secs_fused / secs_single, "max_abs_diff": max(diffs),
+         "launches": launches["fused"]})
+    del fused, singles
+    torch.cuda.empty_cache()
+    return raw, secs_fused
+
+
+def tiny_cpu_artifact(path: Path):
+    """A small model's checkpoint sealed by the export CLI on the CPU (the
+    route the CLI always seals; float32, chunk 8), and a 40-frame video."""
+    EFFNETV2_ARCHS["efficientnetv2_test"] = TINY_ARCH
+    kwargs = dict(model_name="efficientnetv2_test", num_classes=2, num_frames=6, stack_size=3,
+                  index_2d_features=4, num_3d_blocks=2, num_3d_features=16,
+                  num_3d_stack_proj=16, expansion_3d_ratio=2, se_reduce_3d_ratio=4)
+    src = SyntheticSource(num_frames=40, height=64, width=96, seed=1, events={20: 0, 30: 1})
+    video = np.stack([src.fetch_frame(i) for i in range(40)])
+    model = build_model("multidim_stacker", **kwargs)
+    init_weights(model, torch.Generator().manual_seed(7))
+    calibrate_bn(model.eval(), torch.from_numpy(video[:6][None]).float() / 255.0)
+    params = {"nn_module": ("multidim_stacker", kwargs), "frame_stack_size": 6,
+              "frame_stack_step": 2, "frames_processor": ("pad_normalize", {"size": (96, 64)})}
+    tree = state_dict_to_flax_tree(model.state_dict(), model)
+    ckpt = path.with_suffix(".ckpt")
+    save_checkpoint(ckpt, params, tree, tree)
+    art = export_model.main(["--checkpoint", str(ckpt), "--output", str(path),
+                             "--chunk_size", "8", "--dtype", "float32", "--device", "cpu"])
+    return art, video
+
+
+def op_nodes(program) -> dict:
+    """The count of each ``bas_torch`` op's nodes in an exported program."""
+    targets = [str(node.target) for node in program.graph.nodes if node.op == "call_function"]
+    return {name: targets.count(f"bas_torch.{name}.default")
+            for name in ("gem_pool", "dwconv3d", "warp_resample")}
+
+
+def export_phase(dev, weights, frames: np.ndarray, card: str, launches: dict) -> None:
+    """The flagship chunked engine (TTA on) sealed on the card and reloaded
+    in a fresh process without the model code, against the live
+    frame-carry engine; a CPU-traced artifact on the card against the CPU."""
+    live = ChunkedVideoPredictor(weights=weights, device=dev, chunk_size=CHUNK, tta=True,
+                                 carry_features=False)
+    _, raw_live, _ = run_video(live, frames)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        art = export_chunked_predictor(live, tmp / "flagship.bastorx")
+        export_s = time.perf_counter() - t0
+        np.save(tmp / "frames.npy", frames)
+        out = subprocess.run([sys.executable, "-c", EXPORT_PROBE, str(art),
+                              str(tmp / "frames.npy"), str(tmp / "raw.npy"), str(dev)],
+                             cwd=Path(__file__).resolve().parent, capture_output=True,
+                             text=True, timeout=600)
+        if out.returncode != 0:
+            fail(f"the export probe failed:\n{out.stderr[-3000:]}")
+        probe = json.loads(out.stdout.strip().splitlines()[-1])
+        raw_sealed = np.load(tmp / "raw.npy")
+        if probe["models_imported"] or probe["jax_imported"]:
+            fail(f"the artifact's loader imported model code or JAX: {probe}")
+        if probe["op_nodes"] != {"gem_pool": 1, "dwconv3d": DW_PER_CHUNK, "warp_resample": 0}:
+            fail(f"the exported flagship program holds {probe['op_nodes']} custom-op nodes")
+        launches["export"] = probe["launches"]
+        expect_launches("export", probe["launches"], CHUNKS, CHUNKS * DW_PER_CHUNK)
+        diff = agree("export_vs_live_frame_carry", raw_sealed, raw_live, PRED_BF16_ATOL)
+        new = torch.from_numpy(frames[:CHUNK]).to(dev)
+        carry = torch.from_numpy(frames[:live.overlap]).to(dev)
+        live_ms = chunk_ms(live.chunk_frames, new, carry)
+
+        art_cpu, video = tiny_cpu_artifact(tmp / "tiny_cpu.bastorx")
+        on_cpu = ExportedChunkPredictor(art_cpu, device="cpu")
+        on_card = ExportedChunkPredictor(art_cpu, device=dev)
+        cpu_traced_nodes = op_nodes(on_card.program)
+        if cpu_traced_nodes != {"gem_pool": 1, "dwconv3d": 2, "warp_resample": 0}:
+            fail(f"the CLI's CPU-traced artifact holds {cpu_traced_nodes} custom-op nodes")
+        idx_cpu, raw_cpu = on_cpu.predict_video(iter(enumerate(video)), len(video))
+        idx_card, raw_card = counted("export_cpu_traced", launches, lambda: on_card.predict_video(
+            iter(enumerate(video)), len(video)))
+        chunks = -(-len(idx_cpu) // on_card.chunk_size)
+        expect_launches("export_cpu_traced", launches["export_cpu_traced"], chunks, 2 * chunks)
+        if idx_card != idx_cpu:
+            fail("the CPU-traced artifact covers other frames on the card")
+        diff_cpu = agree("cpu_traced_artifact_card_vs_cpu", raw_card, raw_cpu, PRED_F32_ATOL)
+        log({"phase": "export", "card": card, "artifact_mb": art.stat().st_size / 1e6,
+             "export_seconds": export_s, "probe": probe, "max_abs_diff": diff,
+             "ms_per_chunk_exported": probe["ms_per_chunk"], "ms_per_chunk_live": live_ms,
+             "cpu_traced_max_abs_diff": diff_cpu, "cpu_traced_op_nodes": cpu_traced_nodes,
+             "cpu_traced_launches": launches["export_cpu_traced"]})
+    del live
+    torch.cuda.empty_cache()
+
+
+class BatchList:
+    """A sized loader over batches already read."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def parallel_devices(dev) -> list:
+    """The grids' devices: every visible card, or the one card twice."""
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i) for i in range(n)] if n > 1 else [dev, dev]
+
+
+def busy_by_card(predictor, frames: np.ndarray) -> dict:
+    """One ``predict_video`` pass under torch.profiler: its wall ms and, per
+    card, the union of its kernels' intervals (busy ms) and its idle share
+    of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, secs = run_video(predictor, frames)
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+    spans: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.setdefault(e.device_index, []).append((e.time_range.start, e.time_range.end))
+    wall_ms = secs * 1e3
+    busy = {card: union_us(intervals) / 1e3 for card, intervals in sorted(spans.items())}
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": {card: max(0.0, 1.0 - ms / wall_ms) for card, ms in busy.items()}}
+
+
+def train_run(dev, config: dict, batches: list) -> dict:
+    """``Trainer.train_epoch`` over ``batches`` in float32 (augmentation and
+    mixup on) from the trainer's seed, cuDNN deterministic: the losses, the
+    kernels' launches and the final parameters."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = Trainer(config, list(ball.classes), Path(tmp), augment=AugmentConfig(),
+                              mixup=Mixup(), device=dev, compute_dtype=torch.float32)
+            trainer.init_state()
+            losses, step, counts = [], trainer.train_step, {}
+
+            def recording_step(*args):
+                aux = step(*args)
+                losses.append(float(aux["loss"]))
+                return aux
+
+            trainer.train_step = recording_step
+            counted("run", counts, lambda: trainer.train_epoch(BatchList(batches), 0))
+            params = {k: v.detach().cpu() for k, v in trainer.state.model.state_dict().items()}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {"losses": losses, "launches": counts["run"], "params": params}
+
+
+def ms_per_step(dev, rows: int) -> float:
+    """Median ms of ``DP_TIMED_STEPS`` bf16 flagship train steps on one
+    fixed batch of ``rows`` rows, after two."""
+    trainer = Trainer(flagship_config(), list(ball.classes), Path(tempfile.mkdtemp()),
+                      augment=AugmentConfig(), mixup=Mixup(), device=dev)
+    state = trainer.init_state()
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.integers(0, 256, (rows, TRAIN_FRAMES, HEIGHT, WIDTH),
+                                           dtype=np.uint8)).to(dev)
+    targets = torch.from_numpy((rng.random((rows, 2)) > 0.7).astype(np.float32)).to(dev)
+    times = []
+    for _ in range(2 + DP_TIMED_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        float(trainer.train_step(state, frames, targets, 1)["loss"])  # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+    shutil.rmtree(trainer.save_dir, ignore_errors=True)
+    return statistics.median(times[2:])
+
+
+def params_digest(params: dict) -> str:
+    digest = hashlib.sha256()
+    for k in sorted(params):
+        digest.update(params[k].numpy().tobytes())
+    return digest.hexdigest()
+
+
+def dp_train_worker(rank: int, world: int, port: int, tmp: str) -> None:
+    """One rank of the data-parallel training: its rows of the global
+    batches through ``train_run`` over NCCL, then its ms per bf16 step at
+    ``BATCH`` rows."""
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(f"tcp://localhost:{port}", world_size=world, rank=rank, backend="nccl")
+    try:
+        batches = torch.load(Path(tmp) / "batches.pt", weights_only=False)
+        rows = process_slice(BATCH, rank, world)
+        run = train_run(dev, flagship_config(epoch_size=BATCH * DP_TRAIN_STEPS),
+                        [(f[rows], t[rows]) for f, t in batches])
+        run["digest"] = params_digest(run["params"])
+        if rank:
+            del run["params"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        run["ms"] = ms_per_step(dev, BATCH)
+        torch.save(run, Path(tmp) / f"rank_{rank}.pt")
+    finally:
+        multihost.shutdown()
+
+
+def dp_train(dev, world: int, launches: dict) -> dict:
+    """``DP_TRAIN_STEPS`` float32 flagship steps (augmentation and mixup
+    on) through ``Trainer.train_epoch`` in ``world`` processes over NCCL,
+    one per card, each on its rows of the global batches, against the same
+    steps in this process without a process group. cuDNN runs
+    deterministic, so that at world size 1 the two runs differ only by the
+    data-parallel code. Then ms per bf16 step at ``BATCH`` rows per card
+    in the ranks against ``BATCH`` rows on one card here."""
+    config = flagship_config(epoch_size=BATCH * DP_TRAIN_STEPS)
+    train_loader, _ = flagship_loaders(config, ordered=True)
+    batches = [(f.copy(), t.copy()) for f, t in train_loader.epoch(0)]
+    ref = train_run(dev, config, batches)
+    ms_one = ms_per_step(dev, BATCH)
+    gc.collect()
+    torch.cuda.empty_cache()  # the first rank's process shares this card
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(batches, Path(tmp) / "batches.pt")
+        mp.spawn(dp_train_worker, args=(world, free_port(), tmp), nprocs=world, join=True)
+        ranks = [torch.load(Path(tmp) / f"rank_{r}.pt", weights_only=False)
+                 for r in range(world)]
+    got, want = ranks[0]["losses"], ref["losses"]
+    diff = max(abs(a - b) for a, b in zip(got, want))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    # world size 1 runs the same sums as no group; more ranks sum the
+    # global batch's BN statistics and gradients in another order
+    ok = diff <= DP_LOSS_ATOL if world == 1 else rel <= DP_LOSS_RTOL
+    ranks_equal = len({r["digest"] for r in ranks}) == 1
+    param_diff = max((ranks[0]["params"][k] - v).abs().max().item()
+                     for k, v in ref["params"].items())
+    launches["dp_train"] = ranks[0]["launches"]
+    row = {"check": f"dp_train_nccl_world_{world}_vs_no_group", "losses": got, "reference": want,
+           "max_abs_diff": diff, "max_rel_diff": rel,
+           "tolerance": {"atol": DP_LOSS_ATOL} if world == 1 else {"rtol": DP_LOSS_RTOL},
+           "ranks_bitwise_equal": ranks_equal, "param_max_abs_diff": param_diff,
+           "launches": launches["dp_train"], "ms_per_step_one_card": ms_one,
+           "ms_per_step_by_rank": [r["ms"] for r in ranks],
+           "samples_per_s_one_card": BATCH * 1e3 / ms_one,
+           "samples_per_s_world": BATCH * world * 1e3 / max(r["ms"] for r in ranks)}
+    log(row)
+    if len(got) != DP_TRAIN_STEPS or not ok or not ranks_equal:
+        fail(f"data-parallel train steps disagree: {got} vs {want}, ranks equal {ranks_equal}")
+    dp = launches["dp_train"]
+    if dp["warp_H"] != DP_TRAIN_STEPS or dp["warp_V"] != DP_TRAIN_STEPS or \
+            dp["gem"] < DP_TRAIN_STEPS:
+        fail(f"the data-parallel steps did not launch the warp and GeM: {dp}")
+    return row
+
+
+def parallel_phase(dev, weights, folds: list, frames: np.ndarray, raw_main: np.ndarray,
+                   fused: tuple, card: str, launches: dict) -> None:
+    """Data-parallel predict on an N×1 grid and fold-parallel on a 1×N grid
+    of the N visible cards (of the one card twice where only one is
+    visible) against one device, then data-parallel training at N ranks."""
+    devices = parallel_devices(dev)
+    n = len(devices)
+    kw = dict(weights=weights, chunk_size=CHUNK, tta=True)
+    one = ChunkedVideoPredictor(device=dev, **kw)
+    run_video(one, frames[:CHUNK + 30])  # warm-up
+    _, _, secs_one = run_video(one, frames)
+    del one
+    dp = ChunkedVideoPredictor(mesh=make_mesh(n, 1, devices), **kw)
+    run_video(dp, frames[:CHUNK + 30])
+    idx, raw, secs_dp = counted("data_parallel", launches, lambda: run_video(dp, frames))
+    check_outputs("data parallel", idx, raw, len(raw_main))
+    expect_launches("data_parallel", launches["data_parallel"], n * CHUNKS,
+                    n * CHUNKS * DW_PER_CHUNK)  # each share runs its own head
+    diff_dp = agree(f"data_parallel_{n}x1_vs_one_device", raw, raw_main, PRED_BF16_ATOL)
+    trace_dp = busy_by_card(dp, frames)
+    del dp
+    raw_fused, secs_fused = fused
+    cards = torch.cuda.device_count()
+    k = FOLDS if cards > 1 else FOLD_PARALLEL_FOLDS
+    fp = FusedFoldsPredictor(weights=folds[:k], device=dev, chunk_size=CHUNK, tta=True,
+                             mesh=make_mesh(1, n, devices), fold_parallel=True)
+    run_video(fp, frames[:CHUNK + 30])
+    _, raw_fp, secs_fp = counted("fold_parallel", launches, lambda: run_video(fp, frames))
+    padded = len(fp.fold_shares)
+    expect_launches("fold_parallel", launches["fold_parallel"], padded * CHUNKS,
+                    padded * CHUNKS * DW_PER_CHUNK)
+    diff_fp = agree(f"fold_parallel_1x{n}_vs_fused", raw_fp, raw_fused[:, :k], PRED_BF16_ATOL)
+    trace_fp = busy_by_card(fp, frames)
+    del fp
+    torch.cuda.empty_cache()
+    train = dp_train(dev, cards, launches)
+    log({"phase": "parallel", "card": card, "cards": cards,
+         "grid_devices": [str(d) for d in devices],
+         "one_device_seconds": secs_one, "data_parallel_seconds": secs_dp,
+         "data_parallel_speedup": secs_one / secs_dp, "data_parallel_max_abs_diff": diff_dp,
+         "data_parallel_trace": trace_dp, "fold_parallel_folds": k,
+         "fold_parallel_padded_folds": padded, "fold_parallel_seconds": secs_fp,
+         "fused_seconds": secs_fused if k == FOLDS else None,
+         "fold_parallel_speedup": secs_fused / secs_fp if k == FOLDS else None,
+         "fold_parallel_max_abs_diff": diff_fp, "fold_parallel_trace": trace_fp,
+         "train_samples_per_s_speedup":
+             train["samples_per_s_world"] / train["samples_per_s_one_card"],
+         "launches": {k: launches[k] for k in ("data_parallel", "fold_parallel", "dp_train")}})
+
+
+def ensemble_export_parallel(dev, weights, frames: np.ndarray, raw_main: np.ndarray,
+                             card: str) -> dict:
+    """Phase 7: the fused ensemble, the sealed export and the parallel paths;
+    returns each path's launches."""
+    launches: dict = {}
+    t0 = time.perf_counter()
+    folds = [weights] + [(flagship_weights(dev, frames, seed), PARAMS)
+                         for seed in range(1, FOLDS)]
+    fused = fused_phase(dev, folds, frames, card, launches)
+    log({"phase": "fused_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    export_phase(dev, weights, frames, card, launches)
+    log({"phase": "export_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    parallel_phase(dev, weights, folds, frames, raw_main, fused, card, launches)
+    log({"phase": "parallel_done", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1806,7 +2287,7 @@ def main() -> None:
     log({"phase": "kernel_checks_done", "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    launches, weights, video = flagship(dev, card)
+    launches, weights, video, raw_main = flagship(dev, card)
     log({"phase": "inference_done", "seconds": time.perf_counter() - t0})
     with tempfile.TemporaryDirectory() as work:
         work = Path(work)
@@ -1819,6 +2300,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     serve_launches, serve_rows = serving(dev, weights, video, card)
     rows.update(serve_rows)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    new_launches = ensemble_export_parallel(dev, weights, video, raw_main, card)
+    log({"phase": "ensemble_export_parallel_done", "seconds": time.perf_counter() - t0})
 
     # one row per kernel and main path; the warp's H and V passes, two
     # launches of one kernel at different shapes and access patterns, each
@@ -1830,10 +2315,15 @@ def main() -> None:
     # (device-state tick).
     serving_paths = {path: serve_launches[path] for path in
                      ("streaming", "serve_host", "serve_device", "server", "server_host")}
+    new_inference_paths = {path: new_launches[path] for path in
+                           ("fused", "export", "export_cpu_traced", "data_parallel",
+                            "fold_parallel")}
     inference_paths = {"inference": launches, "eval_predict": recipe_launches["eval_predict"],
-                       "action_predict": recipe_launches["action_predict"], **serving_paths}
+                       "action_predict": recipe_launches["action_predict"], **serving_paths,
+                       **new_inference_paths}
     training_paths = {"train": train_launches, "action_train": recipe_launches["action_train"],
-                      "stage3_train": recipe_launches["stage3_train"]}
+                      "stage3_train": recipe_launches["stage3_train"],
+                      "dp_train": new_launches["dp_train"]}
     sources = {
         "gem_pool_inference": ("gem", "ball_action_spotting_torch/csrc/gem.cu",
                                "ball_action_spotting_tpu/ops/pallas_gem.py:64", inference_paths),
@@ -1865,7 +2355,8 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": by_path[next(iter(paths))], "launches_by_path": by_path,
             "max_abs_err": row["max_abs_diff"],
-            "ms": row["kernel_ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "ms": row["kernel_ms"], "direct_ms": row["direct_ms"],
+            "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
         })

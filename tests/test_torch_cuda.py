@@ -159,3 +159,28 @@ def test_dwconv3d_route_shapes(cuda, shape, dtype, layout, launches):
     assert out.dtype == dtype and out.shape == x.shape
     tol = DW_F32_ATOL if dtype == torch.float32 else DW_TOL * ref.abs().max().item()
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.cpu().numpy(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_custom_ops_launch_the_kernels(cuda):
+    """Each ``bas_torch`` op launches its kernel on a CUDA tensor (one
+    counted launch per call) and passes ``torch.library.opcheck`` there."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x4 = torch.rand(2, 3, 4, 8, generator=g, device=cuda)
+    x5 = torch.rand(1, 3, 4, 5, 8, generator=g, device=cuda)
+    k = torch.rand(3, 3, 3, 1, 8, generator=g, device=cuda)
+    img = torch.rand(2, 5, 8, generator=g, device=cuda)
+    p = torch.full((1,), 3.0, device=cuda)
+    calls = [
+        (GEM_KERNEL, torch.ops.bas_torch.gem_pool, (x4, p, 1e-6)),
+        (DW_KERNEL, torch.ops.bas_torch.dwconv3d, (x5, k)),
+        (WARP_KERNEL, torch.ops.bas_torch.warp_resample,
+         (img, torch.ones(2, device=cuda), torch.zeros(2, 5, device=cuda), 4, "highest", 2)),
+    ]
+    for kernel, op, args in calls:
+        kernel.reset_counts()
+        op(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches == 1, op
+        results = torch.library.opcheck(op, args)
+        assert set(results.values()) == {"SUCCESS"}, results

@@ -12,6 +12,9 @@ import pytest
 import torch
 
 from ball_action_spotting_torch.device import resolve_device
+from ball_action_spotting_torch.parallel.mesh import make_mesh
+from ball_action_spotting_torch.predict.export import ExportedChunkPredictor
+from ball_action_spotting_torch.predict.fused import FusedFoldsPredictor
 from ball_action_spotting_torch.predict.multistream import (
     DeviceStateMultiStreamPredictor,
     MultiStreamPredictor,
@@ -42,8 +45,13 @@ for name in names:
 import chip_smoke
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
+print(" ".join(names))
 print(len(names))
 """
+
+
+NEW_MODULES = ("predict.fused", "predict.export", "predict.host_loop", "parallel.mesh",
+               "parallel.multihost", "cli.export_model")
 
 
 def test_port_imports_no_jax():
@@ -51,6 +59,9 @@ def test_port_imports_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) >= 70  # every module was imported
+    imported = out.stdout.strip().splitlines()[-2].split()
+    for name in NEW_MODULES:
+        assert f"ball_action_spotting_torch.{name}" in imported, name
 
 
 def test_chip_smoke_needs_a_gpu():
@@ -72,3 +83,14 @@ def test_entry_points_need_cuda_or_cpu(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             engine(tmp_path / "model-001-0.5.ckpt")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_fused_export_and_grid_entry_points_need_cuda_or_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this check is about a machine without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FusedFoldsPredictor([tmp_path / "model-001-0.5.ckpt"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ExportedChunkPredictor(tmp_path / "chunk.bastorx")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(1, 1)
