@@ -26,7 +26,8 @@ from ball_action_spotting_torch.predict.streaming import ChunkedVideoPredictor
 
 def parse_arguments(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--checkpoint", required=True, type=Path, help="a .ckpt file")
+    parser.add_argument("--checkpoint", required=True, type=Path,
+                        help="a .ckpt or reference .pth file")
     parser.add_argument("--output", required=True, type=Path)
     parser.add_argument("--tta", action="store_true",
                         help="seal hflip TTA into the program (the ball recipe's default)")
@@ -37,6 +38,8 @@ def parse_arguments(argv=None):
     parser.add_argument("--device", default="cuda", type=str,
                         help="the device the program is traced on")
     parser.add_argument("--no_fold_bn", action="store_true")
+    parser.add_argument("--s2d_stem", action="store_true",
+                        help="seal the encoder's stem as the space-to-depth stem (exact)")
     return parser.parse_args(argv)
 
 
@@ -46,7 +49,7 @@ def main(argv=None) -> Path:
         args.checkpoint, tta=args.tta,
         dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
         fold_bn=not args.no_fold_bn, chunk_size=args.chunk_size, device=args.device,
-        dw3d_use_kernel=True)
+        dw3d_use_kernel=True, s2d_stem=args.s2d_stem)
     out = export_chunked_predictor(predictor, args.output)
     print(f"Exported {args.checkpoint} -> {out} ({out.stat().st_size / 1e6:.1f} MB, "
           f"traced on {args.device}, tta={args.tta}, chunk={args.chunk_size}, "

@@ -65,7 +65,9 @@ def jax_variables_to_state_dict(variables_np: Mapping, nn_kwargs: Mapping) -> di
     """{"params", "batch_stats"} (or folded {"params"}) numpy tree → the
     state_dict of ``build_model("multidim_stacker", **nn_kwargs)`` (with
     ``bn_folded`` set when the tree has no ``batch_stats``). The result is
-    checked by a strict ``load_state_dict`` into that model."""
+    checked by a strict ``load_state_dict`` into that model, so a
+    space-to-depth stem's (2, 2, 4C, O) kernel needs ``stem_space_to_depth``
+    in ``nn_kwargs``."""
     from ball_action_spotting_torch.models import build_model
 
     state = flax_tree_to_state_dict(variables_np)

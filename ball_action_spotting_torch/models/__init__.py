@@ -1,5 +1,7 @@
 """Model zoo: ``build_model`` instantiates a model family by name from a
-checkpoint's ``nn_module`` kwargs. This slice ports ``multidim_stacker``."""
+checkpoint's ``nn_module`` kwargs: ``multidim_stacker``, ``multichan_stacker``
+and the plain 2D classifier (``timm``, ``classifier2d``), as the JAX
+package's registry does."""
 
 import math
 from typing import Any
@@ -15,13 +17,20 @@ from ball_action_spotting_torch.models.effnetv2 import (
     EFFNETV2_ARCHS,
     EfficientNetV2Features,
 )
+from ball_action_spotting_torch.models.classifier2d import Classifier2d
+from ball_action_spotting_torch.models.multichan_stacker import MultiChanStacker
 from ball_action_spotting_torch.models.multidim_stacker import MultiDimStacker
 
 MODEL_REGISTRY: dict[str, Any] = {
     "multidim_stacker": MultiDimStacker,
+    "multichan_stacker": MultiChanStacker,
+    # the plain 2D encoder + head, the reference registry's generic "timm"
+    "timm": Classifier2d,
+    "classifier2d": Classifier2d,
 }
 
 # kwargs that configure weight initialization, not module structure
+# (``pretrained`` is honoured by ``Trainer.init_state``)
 _IGNORED_KWARGS = {"pretrained"}
 
 
@@ -83,11 +92,13 @@ def init_train_weights(model: torch.nn.Module, generator: torch.Generator) -> to
 
 
 __all__ = [
+    "Classifier2d",
     "EFFNETV2_ARCHS",
     "EfficientNetV2Features",
     "GeneralizedMeanPooling",
     "InvertedResidual3d",
     "MODEL_REGISTRY",
+    "MultiChanStacker",
     "MultiDimStacker",
     "SqueezeExcite3d",
     "build_model",

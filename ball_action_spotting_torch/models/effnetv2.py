@@ -9,8 +9,9 @@ the extra pixel of a stride-2 conv at the bottom/right, and BatchNorm eps
 1e-3. Module and parameter names follow the Flax modules (``conv_stem``,
 ``bn1``, ``blocks_{stage}_{rep}``, ``conv_pw``, ``se.conv_reduce`` ...), so
 ``convert.py`` maps one state onto the other. In training mode BN uses
-batch statistics and the residual blocks drop paths. The space-to-depth
-stem and the int8 convs of the JAX package are not ported yet.
+batch statistics and the residual blocks drop paths. ``stem_space_to_depth``
+is the JAX package's space-to-depth stem (``stem_kernel_to_s2d`` maps a
+trained stem onto it); the int8 convs of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -138,6 +139,50 @@ def resolve_arch(name: str) -> tuple[int, list[BlockDef]]:
         for b in stages
     ]
     return stem, resolved
+
+
+def stem_kernel_to_s2d(kernel_hwio):
+    """Transform a (3, 3, C, O) stride-2 stem kernel into the equivalent
+    (2, 2, 4C, O) kernel for the space-to-depth stem (exact: output i of the
+    k3 s2 SAME conv reads input rows 2i..2i+2, i.e. s2d blocks i, i+1 with a
+    zero 4th tap). Copy of the JAX package's numpy function; channel
+    ``dy·2C + dx·C + c`` of the s2d input is pixel (dy, dx) of channel c."""
+    import numpy as np
+
+    k = np.asarray(kernel_hwio)
+    kh, kw, c, o = k.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError(f"stem_kernel_to_s2d needs a 3x3 stem kernel, got {k.shape}")
+    k4 = np.zeros((4, 4, c, o), k.dtype)
+    k4[:3, :3] = k
+    new = np.zeros((2, 2, 4 * c, o), k.dtype)
+    for py in range(2):
+        for px in range(2):
+            for dy in range(2):
+                for dx in range(2):
+                    ch = dy * 2 * c + dx * c
+                    new[py, px, ch : ch + c] = k4[2 * py + dy, 2 * px + dx]
+    return new
+
+
+def stem_weight_to_s2d(weight: torch.Tensor) -> torch.Tensor:
+    """``stem_kernel_to_s2d`` on a port stem weight: (O, C, 3, 3) →
+    (O, 4C, 2, 2), float32."""
+    hwio = weight.detach().cpu().float().numpy().transpose(2, 3, 1, 0)
+    return torch.from_numpy(stem_kernel_to_s2d(hwio).transpose(3, 2, 0, 1).copy())
+
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) → (B, 4C, H/2, W/2), channel ``dy·2C + dx·C + c`` =
+    pixel (2i + dy, 2j + dx) of channel c: the JAX stem's
+    ``reshape(b, h/2, 2, w/2, 2, c).transpose(0, 1, 3, 2, 4, 5)`` order
+    (``F.pixel_unshuffle`` orders (c, dy, dx) instead). An odd H or W
+    raises, as JAX's reshape does."""
+    b, c, h, w = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"the space-to-depth stem needs an even height and width, got {h}x{w}")
+    x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(b, 4 * c, h // 2, w // 2)
 
 
 def same_pad(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -441,19 +486,27 @@ class EfficientNetV2Features(nn.Module):
     """Features-only EfficientNetV2 trunk: (B, C_in, H, W) → the activation
     at reduction boundary ``out_index`` (0..4 ↔ strides 2..32). Stages past
     the tap are never built. Block ``i`` (counted over every stage of the
-    arch) drops paths at ``drop_path_rate·i/total_blocks``."""
+    arch) drops paths at ``drop_path_rate·i/total_blocks``.
+    ``stem_space_to_depth`` folds each 2×2 pixel block into channels
+    (``space_to_depth``) and runs the stem as a 2×2 stride-1 SAME conv on
+    4·C_in channels, whose weight ``stem_weight_to_s2d`` gives from a
+    standard stem's: the same function."""
 
     bn_eps = 1e-3  # TF-ported weights; read by models/fold_bn.py
 
     def __init__(self, model_name: str = "efficientnetv2_b0", out_index: int = 4,
                  in_chans: int = 3, act: Callable = F.silu, bn_folded: bool = False,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, stem_space_to_depth: bool = False):
         super().__init__()
         stem_ch, stages = resolve_arch(model_name)
         total_blocks = sum(s.repeats for s in stages)
         last_stage = self._tap_stages(stages)[out_index]
         eps = self.bn_eps
-        self.conv_stem = Conv2dSame(in_chans, stem_ch, 3, 2)
+        self.stem_space_to_depth = stem_space_to_depth
+        if stem_space_to_depth:
+            self.conv_stem = Conv2dSame(4 * in_chans, stem_ch, 2, 1)
+        else:
+            self.conv_stem = Conv2dSame(in_chans, stem_ch, 3, 2)
         self.bn1 = BatchNormAct(stem_ch, act, eps, bn_folded)
         self.block_names: list[str] = []
         in_ch = stem_ch
@@ -496,6 +549,8 @@ class EfficientNetV2Features(nn.Module):
         return taps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.stem_space_to_depth:
+            x = space_to_depth(x)
         x = self.bn1(self.conv_stem(x))
         for name in self.block_names:
             x = getattr(self, name)(x)

@@ -30,7 +30,8 @@ def default_eps_rule(path: tuple[str, ...]) -> float:
     """The model family's BN epsilons, read from the port modules' own
     defaults: the projection norms (``PROJECTION_BN_EPS``), the 3D blocks
     (``InvertedResidual3d.bn_eps``) and the TF-ported encoder
-    (``EfficientNetV2Features.bn_eps``). Unknown BN scopes raise."""
+    (``EfficientNetV2Features.bn_eps``: scope ``conv2d_encoder`` in the
+    stackers, ``encoder`` in ``Classifier2d``). Unknown BN scopes raise."""
     from ball_action_spotting_torch.models.blocks3d import InvertedResidual3d
     from ball_action_spotting_torch.models.effnetv2 import EfficientNetV2Features
     from ball_action_spotting_torch.models.multidim_stacker import PROJECTION_BN_EPS
@@ -39,7 +40,7 @@ def default_eps_rule(path: tuple[str, ...]) -> float:
         return float(PROJECTION_BN_EPS)
     if any(p.startswith("conv3d_encoder") for p in path):
         return float(InvertedResidual3d.bn_eps)
-    if "conv2d_encoder" in path:
+    if "conv2d_encoder" in path or "encoder" in path:
         return float(EfficientNetV2Features.bn_eps)
     raise ValueError(f"fold_bn: no epsilon known for BN scope {'.'.join(path)}")
 
@@ -48,7 +49,8 @@ def fold_bn_state_dict(
     state_dict: Mapping[str, torch.Tensor],
     eps_rule: Callable[[tuple[str, ...]], float] = default_eps_rule,
 ) -> dict[str, torch.Tensor]:
-    """Unfolded ``MultiDimStacker`` state_dict → the state_dict of the
+    """Unfolded state_dict of a model family (``MultiDimStacker``,
+    ``MultiChanStacker``, ``Classifier2d``) → the state_dict of the
     ``bn_folded=True`` model. Raises if a BN has no recognized conv
     sibling."""
     out = dict(state_dict)

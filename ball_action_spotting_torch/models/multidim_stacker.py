@@ -54,7 +54,9 @@ class MultiDimStacker(nn.Module):
     mode ``drop_rate`` is the dropout before the classifier and
     ``drop_path_rate`` the stochastic depth of the encoder (scaled by block
     index) and of every 3D block (in full); their masks come from the
-    generator that ``set_dropout_generator`` gives the model."""
+    generator that ``set_dropout_generator`` gives the model.
+    ``stem_space_to_depth`` builds the encoder with the space-to-depth stem
+    (``effnetv2.py::EfficientNetV2Features``)."""
 
     def __init__(
         self,
@@ -74,6 +76,7 @@ class MultiDimStacker(nn.Module):
         dtype: torch.dtype = torch.float32,
         bn_folded: bool = False,
         dw3d_use_kernel: bool = False,
+        stem_space_to_depth: bool = False,
     ):
         super().__init__()
         if num_frames <= 0 or num_frames % stack_size:
@@ -90,8 +93,9 @@ class MultiDimStacker(nn.Module):
         enc_ch = EfficientNetV2Features.feature_channels(model_name, index_2d_features)
 
         self.conv2d_encoder = EfficientNetV2Features(
-            model_name, index_2d_features, in_chans=stack_size, act=act,
+            model_name, index_2d_features, in_chans=self.encoder_in_chans(), act=act,
             bn_folded=bn_folded, drop_path_rate=drop_path_rate,
+            stem_space_to_depth=stem_space_to_depth,
         )
         self.conv2d_projection_conv = PointwiseConv(enc_ch, num_3d_features)
         self.conv2d_projection_bn = BatchNormAct(
@@ -109,6 +113,9 @@ class MultiDimStacker(nn.Module):
         self.global_pool = GeneralizedMeanPooling(3.0)
         self.dropout = Dropout(drop_rate)
         self.classifier = nn.Linear(num_3d_stack_proj * self.num_stacks, num_classes)
+
+    def encoder_in_chans(self) -> int:
+        return self.stack_size
 
     @property
     def num_stacks(self) -> int:

@@ -66,7 +66,7 @@ class FusedFoldsPredictor(ChunkedVideoPredictor):
                  fold_bn: bool = True, dw3d_use_kernel: bool | None = None,
                  device: str | torch.device = "cuda", chunk_size: int = 128,
                  carry_features: bool = True, mesh=None, fold_parallel: bool = False,
-                 weights: Sequence[tuple[dict, dict]] | None = None):
+                 weights: Sequence[tuple[dict, dict]] | None = None, s2d_stem: bool = False):
         sources = ([{"weights": w} for w in weights] if weights is not None
                    else [{"checkpoint_path": Path(p)} for p in checkpoint_paths])
         if not sources:
@@ -85,7 +85,7 @@ class FusedFoldsPredictor(ChunkedVideoPredictor):
         super().__init__(**sources[0], tta=tta, use_ema=use_ema, dtype=dtype,
                          fold_bn=fold_bn, dw3d_use_kernel=dw3d_use_kernel, device=device,
                          chunk_size=chunk_size, carry_features=carry_features,
-                         mesh=None if fold_parallel else mesh)
+                         mesh=None if fold_parallel else mesh, s2d_stem=s2d_stem)
         self.fold_parallel = fold_parallel
         self.num_folds = len(sources)
         names = [src.get("checkpoint_path", f"weights[{i}]") for i, src in enumerate(sources)]

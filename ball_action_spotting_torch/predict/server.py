@@ -357,9 +357,10 @@ def make_server(predictor, host: str = "127.0.0.1", port: int = 0,
 def build_engine(checkpoint_path=None, *, device_state: bool = False, **engine_kwargs):
     """The engine ``main`` serves: ``DeviceStateMultiStreamPredictor`` with
     ``device_state``, else ``MultiStreamPredictor``. ``engine_kwargs`` go
-    to it (``tta``, ``device``, ``bucket_granularity``, or ``weights`` in
-    place of the checkpoint); on a CUDA device the 3D blocks' depthwise
-    conv runs the hand-written kernel, the engines' default."""
+    to it (``tta``, ``device``, ``bucket_granularity``, ``s2d_stem``, or
+    ``weights`` in place of the checkpoint, a ``.ckpt`` or reference
+    ``.pth``); on a CUDA device the 3D blocks' depthwise conv runs the
+    hand-written kernel, the engines' default."""
     engine_cls = DeviceStateMultiStreamPredictor if device_state else MultiStreamPredictor
     return engine_cls(checkpoint_path, **engine_kwargs)
 
@@ -410,10 +411,13 @@ def main(argv: Optional[list[str]] = None) -> None:
              "engine tolerates gaps")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the engine (cuda, cuda:1, cpu)")
+    parser.add_argument("--s2d_stem", action="store_true",
+                        help="run the encoder's stem as the space-to-depth stem (exact)")
     args = parser.parse_args(argv)
 
     predictor = build_engine(args.checkpoint, device_state=args.device_state, tta=args.tta,
-                             device=args.device, bucket_granularity=args.bucket_granularity)
+                             device=args.device, bucket_granularity=args.bucket_granularity,
+                             s2d_stem=args.s2d_stem)
     if args.warmup_streams > 0:
         t0 = time.perf_counter()
         warmed = warm_engine(predictor, args.warmup_streams, args.max_batch)

@@ -29,8 +29,9 @@ stack map; the chunked program normalizes in the compute dtype and pools
 per stack.
 
 ``ChunkedVideoPredictor(mesh=...)`` spreads each chunk over the data axis
-of a device grid (``parallel/mesh.py``). Not ported yet: the ``spatial``
-option, the space-to-depth stem and int8 convs.
+of a device grid (``parallel/mesh.py``). Every engine reads a ``.ckpt`` or
+a reference argus ``.pth`` and takes ``s2d_stem`` (the space-to-depth stem,
+exact). Not ported yet: the ``spatial`` option and int8 convs.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from ball_action_spotting_torch.convert import jax_variables_to_state_dict
 from ball_action_spotting_torch.core.indexes import StackIndexesGenerator
 from ball_action_spotting_torch.device import resolve_device
 from ball_action_spotting_torch.models import build_model
+from ball_action_spotting_torch.models.effnetv2 import stem_weight_to_s2d
 from ball_action_spotting_torch.models.fold_bn import fold_bn_state_dict
 from ball_action_spotting_torch.parallel.mesh import make_mesh
 from ball_action_spotting_torch.parallel.multihost import process_slice
@@ -63,14 +65,26 @@ def _batched(seq, size):
 
 
 def load_inference_variables(checkpoint_path: Path | str, use_ema: bool = True,
-                             fold_bn: bool = True) -> tuple[dict, dict]:
-    """Checkpoint → (port state_dict, params dict): EMA selection, then the
-    BN fold. The single loading path of every predictor."""
+                             fold_bn: bool = True, s2d_stem: bool = False) -> tuple[dict, dict]:
+    """Checkpoint (``.ckpt`` or reference ``.pth``) → (port state_dict,
+    params dict): EMA selection, the BN fold, then the optional s2d stem
+    rewrite. The single loading path of every predictor."""
     variables, params = resolve_pretrain_variables(Path(checkpoint_path), use_ema)
     state = jax_variables_to_state_dict(variables, params["nn_module"][1])
+    return inference_state(state, fold_bn, s2d_stem), params
+
+
+def inference_state(state: dict, fold_bn: bool, s2d_stem: bool) -> dict:
+    """An unfolded port state_dict → the inference engines' weights: BN
+    folded into the convs (``models/fold_bn.py``), then, with ``s2d_stem``,
+    the k3 s2 stem rewritten as the space-to-depth stem's k2 s1 conv on 4·C
+    channels (exact, ``effnetv2.py::stem_kernel_to_s2d``)."""
     if fold_bn:
         state = fold_bn_state_dict(state)
-    return state, params
+    if s2d_stem:
+        key = "conv2d_encoder.conv_stem.weight"
+        state = {**state, key: stem_weight_to_s2d(state[key])}
+    return state
 
 
 class PredictorBase:
@@ -82,7 +96,8 @@ class PredictorBase:
     exist; ``dtype`` is the compute dtype (bfloat16 by default, as on the
     TPU). ``dw3d_use_kernel`` routes the 3D blocks' depthwise conv through
     the hand-written kernel; by default it does so on a CUDA device, and
-    ``False`` keeps the grouped ``conv3d`` there."""
+    ``False`` keeps the grouped ``conv3d`` there. ``s2d_stem`` runs the
+    encoder's stem as the space-to-depth stem, on the same weights."""
 
     def __init__(
         self,
@@ -94,12 +109,13 @@ class PredictorBase:
         dw3d_use_kernel: bool | None = None,
         device: str | torch.device = "cuda",
         weights: tuple[dict, dict] | None = None,
+        s2d_stem: bool = False,
     ):
         self.device = resolve_device(device)
         if dw3d_use_kernel is None:
             dw3d_use_kernel = self.device.type == "cuda"
         self._load_options = dict(use_ema=use_ema, dtype=dtype, fold_bn=fold_bn,
-                                  dw3d_use_kernel=dw3d_use_kernel)
+                                  dw3d_use_kernel=dw3d_use_kernel, s2d_stem=s2d_stem)
         self.model, params = self.load_model(checkpoint_path, weights)
         self.params = params
         self.tta = tta
@@ -116,22 +132,23 @@ class PredictorBase:
                    weights: tuple[dict, dict] | None = None):
         """(model on this engine's device in eval mode, params dict) from a
         checkpoint or from ``weights``, with this engine's EMA choice,
-        compute dtype, BN fold and depthwise route."""
+        compute dtype, BN fold, stem and depthwise route."""
         opts = self._load_options
         if (checkpoint_path is None) == (weights is None):
             raise ValueError("pass exactly one of checkpoint_path and weights")
         if weights is None:
             state, params = load_inference_variables(
-                checkpoint_path, use_ema=opts["use_ema"], fold_bn=opts["fold_bn"])
+                checkpoint_path, use_ema=opts["use_ema"], fold_bn=opts["fold_bn"],
+                s2d_stem=opts["s2d_stem"])
         else:
             state, params = weights
-            if opts["fold_bn"]:
-                state = fold_bn_state_dict(state)
+            state = inference_state(state, opts["fold_bn"], opts["s2d_stem"])
         nn_name, nn_kwargs = params["nn_module"]
         if nn_name != "multidim_stacker":
             raise ValueError(f"Unsupported nn_module {nn_name!r}")
         model = build_model(nn_name, dtype=opts["dtype"], bn_folded=opts["fold_bn"],
-                            dw3d_use_kernel=opts["dw3d_use_kernel"], **nn_kwargs)
+                            dw3d_use_kernel=opts["dw3d_use_kernel"],
+                            **{**nn_kwargs, "stem_space_to_depth": opts["s2d_stem"]})
         model.load_state_dict(state, strict=True)
         return model.to(self.device).eval(), params
 

@@ -65,15 +65,16 @@ def get_best_checkpoint_path(
     dir_path: Path, return_score: bool = False, more_better: bool = True,
     tie_keep: str = "last",
 ):
-    """Best ``.ckpt`` by the score in its filename
-    ``model-{epoch:03d}-{score:.6f}.ckpt``. ``tie_keep`` breaks exact score
+    """Best checkpoint by the score in its filename
+    ``model-{epoch:03d}-{score:.6f}.ckpt``; reference argus ``.pth`` files
+    named the same way rank beside them. ``tie_keep`` breaks exact score
     ties: ``"last"`` prefers the later epoch, ``"first"`` the earlier one."""
     if tie_keep not in ("first", "last"):
         raise ValueError(f"tie_keep must be 'first' or 'last', got {tie_keep!r}")
     dir_path = Path(dir_path)
     scored = []
-    for path in dir_path.glob(f"*{CKPT_SUFFIX}"):
-        m = re.search(r"-(\d+(?:\.\d+)?)\.ckpt$", path.name)
+    for path in list(dir_path.glob(f"*{CKPT_SUFFIX}")) + list(dir_path.glob("*.pth")):
+        m = re.search(r"-(\d+(?:\.\d+)?)\.(?:ckpt|pth)$", path.name)
         if m:
             scored.append((path, float(m.group(1))))
     if not scored:
@@ -90,13 +91,19 @@ def get_best_checkpoint_path(
 
 
 def resolve_pretrain_variables(path: Path, use_ema: bool = True) -> tuple[dict, dict]:
-    """Load a native ``.ckpt`` checkpoint. The JAX package also reads
-    reference ``.pth`` files and Orbax directories; the port does not yet."""
+    """(numpy variable tree, params dict) of a native ``.ckpt`` checkpoint
+    or a reference argus ``.pth`` (``models/torch_import.py``, which
+    unpickles it: load only files you trust). The JAX package also reads
+    Orbax directories; the port does not."""
     path = Path(path)
-    if path.suffix == ".pth" or path.is_dir():
+    if path.suffix == ".pth":
+        from ball_action_spotting_torch.models.torch_import import load_reference_checkpoint
+
+        return load_reference_checkpoint(path, use_ema=use_ema)
+    if path.is_dir():
         raise ValueError(
-            f"{path}: the port loads .ckpt checkpoints only (.pth and Orbax "
-            "directories are not ported yet)")
+            f"{path}: the port loads .ckpt and reference .pth checkpoints only (Orbax "
+            "directories are not ported)")
     return load_checkpoint(path, use_ema=use_ema)
 
 

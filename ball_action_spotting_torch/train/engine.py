@@ -35,6 +35,7 @@ from ball_action_spotting_torch.convert import flax_tree_to_state_dict, state_di
 from ball_action_spotting_torch.data.loader import prefetch_to_device
 from ball_action_spotting_torch.device import resolve_device
 from ball_action_spotting_torch.models import build_model, init_train_weights
+from ball_action_spotting_torch.models.pretrained import apply_pretrained_encoder
 from ball_action_spotting_torch.ops.augment import AugmentConfig
 from ball_action_spotting_torch.ops.losses import build_loss
 from ball_action_spotting_torch.ops.mixup import Mixup
@@ -165,20 +166,28 @@ class Trainer:
     # --- state/initialization -------------------------------------------
 
     def init_state(self, pretrain_variables: Optional[dict] = None) -> TrainState:
-        """Model weights from the seed (Flax's initializers), or transferred
-        from a prior stage's checkpoint tree; then the optimizer and EMA."""
+        """Model weights from the seed (Flax's initializers), then either
+        transferred from a prior stage's checkpoint tree or, with
+        ``pretrained`` in the model kwargs, the encoder's from the ImageNet
+        weight file (``models/pretrained.py``; a missing file raises); then
+        the optimizer and EMA. A stage pretrain supersedes the ImageNet
+        init, as in the reference."""
         nn_name, nn_kwargs = self.config["argus_params"]["nn_module"]
-        if pretrain_variables is None and nn_kwargs.get("pretrained", False):
-            raise NotImplementedError(
-                "pretrained=True needs the ImageNet encoder weights "
-                "(models/pretrained.py is not ported yet); use pretrained=False")
         model = build_model(nn_name, dtype=self.compute_dtype, **nn_kwargs)
         init_train_weights(model, torch.Generator().manual_seed(self.seed))
         if pretrain_variables is not None:
-            # a prior stage's checkpoint supersedes the initialization
             state = ckpt_lib.transfer_weights(
                 model.state_dict(), flax_tree_to_state_dict(pretrain_variables))
             model.load_state_dict(state)
+        elif nn_kwargs.get("pretrained", False):
+            encoder_name = ("encoder" if nn_name in ("timm", "classifier2d")
+                            else "conv2d_encoder")
+            state = apply_pretrained_encoder(
+                model.state_dict(), nn_kwargs["model_name"], encoder_name=encoder_name,
+                stem_space_to_depth=bool(nn_kwargs.get("stem_space_to_depth", False)))
+            model.load_state_dict(state)
+            self.logger.info(f"Initialized {encoder_name} from ImageNet-pretrained "
+                             f"{nn_kwargs['model_name']}")
         model.to(self.device)
         opt_name, opt_kwargs = self.optimizer_spec
         optimizer = build_optimizer(opt_name, opt_kwargs, model, self.freeze_conv2d_encoder)

@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): kernels, the
 flagship chunked inference path, the flagship training path, the rest of
-the four-stage recipe with its evaluation, the serving path, and the
-fold-fused ensemble, the sealed export and the parallel paths.
+the four-stage recipe with its evaluation, the serving path, the
+fold-fused ensemble, the sealed export and the parallel paths, and the
+weight sources and model families (ImageNet files, reference ``.pth``
+checkpoints, the s2d stem, ``multichan_stacker``, ``classifier2d``).
 
     python3 chip_smoke.py
 
@@ -106,13 +108,35 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    process group, the warp and GeM launched, and ms per bf16 step at 4
    rows per card against 4 rows on one card. On one card, equality across
    more than one rank is the CPU tests' (``tests/test_torch_parallel.py``).
-8. Prints the ``kernels`` JSON line (one row per kernel and main path:
+8. Weights and model families, at the flagship's full width, each path
+   with the launch counters set to 0: a seeded timm-layout
+   ``tf_efficientnetv2_b0`` file (the ImageNet head and BN counts
+   included) written as ``.safetensors`` (header and bytes written here)
+   and as ``.pth``, each in its own ``BAS_TPU_PRETRAINED_DIR``; stage 1
+   (``sampling_weights_001``) trains from the first and stage 2
+   (``action_sampling_weights_002``) from the second, both as shipped
+   (``pretrained=True``), cut in depth only as in phase 5: the encoder's
+   weights and BN statistics at init bitwise the file's, the warp twice and
+   GeM at least once per step, losses finite. A reference argus ``.pth`` of
+   the inference phase's weights (EMA and raw, the reference's names)
+   beside a lower-scored ``.ckpt`` of the same: discovery picks the
+   ``.pth``, both load to the same state bitwise, the chunked engine
+   predicts the 414-frame video from each (TTA on; GeM 3, dwconv3d 12
+   launches) as the main path did, and the ``.pth`` is stage 3's stage
+   pretrain (every tensor loaded). ``s2d_stem=True`` against the standard
+   stem on that checkpoint (bf16 over the video, float32 over 46 frames).
+   ``multichan_stacker`` (3 channels) over (2, 15, 3, 736, 1280), the
+   depthwise kernel against the grouped conv; ``classifier2d`` with GeM
+   over (4, 3, 736, 1280), one bf16 forward and backward, then the folded
+   forward against the unfolded one in float32. GeM and the depthwise conv
+   are timed at the multi-channel stacker's shapes.
+9. Prints the ``kernels`` JSON line (one row per kernel and main path:
    GeM on the inference and on the training path, the depthwise conv, and
    the warp's H and V passes, each with its own launches and bound, and
-   ``launches_by_path``: the recipe, serving and phase-7 paths of the same
-   kind, each of which must launch it; then GeM and the depthwise conv at
-   the serving shapes, each with the serving paths), then the device line
-   last.
+   ``launches_by_path``: the recipe, serving, phase-7 and phase-8 paths of
+   the same kind, each of which must launch it; then GeM and the depthwise
+   conv at the serving and the multi-channel shapes, each with its paths),
+   then the device line last.
 
 Float32 comparisons run with TF32 off (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32`` set False): cuDNN would
@@ -121,13 +145,16 @@ otherwise run float32 convolutions in TF32.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import hashlib
 import json
 import math
 import os
+import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -140,6 +167,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.multiprocessing as mp
+import torch.nn.functional as F
 
 from ball_action_spotting_torch.cli import (
     action_evaluate,
@@ -166,7 +194,13 @@ from ball_action_spotting_torch.domains import action, ball
 from ball_action_spotting_torch.eval.soccernet_map import evaluate_games
 from ball_action_spotting_torch.eval.submission import make_submission_zip
 from ball_action_spotting_torch.models import build_model, init_train_weights, init_weights
-from ball_action_spotting_torch.models.effnetv2 import EFFNETV2_ARCHS, BatchNormAct, BlockDef
+from ball_action_spotting_torch.models.effnetv2 import (
+    EFFNETV2_ARCHS,
+    BatchNormAct,
+    BlockDef,
+    EfficientNetV2Features,
+)
+from ball_action_spotting_torch.models.fold_bn import fold_bn_state_dict
 from ball_action_spotting_torch.ops import KERNELS
 from ball_action_spotting_torch.ops import dwconv3d as dw_ops
 from ball_action_spotting_torch.ops import gem as gem_ops
@@ -206,10 +240,12 @@ from ball_action_spotting_torch.predict.streaming import (
     ChunkedVideoPredictor,
     StreamingPredictor,
     get_raw_predictions,
+    load_inference_variables,
 )
 from ball_action_spotting_torch.train.checkpoint import (
     get_best_checkpoint_path,
     load_checkpoint,
+    resolve_pretrain_variables,
     save_checkpoint,
 )
 from ball_action_spotting_torch.train.engine import Trainer
@@ -1288,14 +1324,48 @@ def write_recipe_game(game_dir: Path, label_file: str, events: dict, seed: int) 
     (game_dir / label_file).write_text(json.dumps({"annotations": annotations}))
 
 
-def recipe_config(config: dict) -> dict:
+def recipe_config(config: dict, pretrained: bool = False) -> dict:
     """A recipe config cut in depth only: 1 warmup + 1 train epoch of 8
-    samples at batch 4 (4 optimizer steps), no ImageNet weights."""
+    samples at batch 4 (4 optimizer steps); without ImageNet weights unless
+    ``pretrained``, which keeps the config's own setting."""
     config = dict(config, train_epoch_size=8, num_epochs=[1, 1])
-    name, kwargs = config["argus_params"]["nn_module"]
-    config["argus_params"] = dict(config["argus_params"],
-                                  nn_module=(name, dict(kwargs, pretrained=False)))
+    if not pretrained:
+        name, kwargs = config["argus_params"]["nn_module"]
+        config["argus_params"] = dict(config["argus_params"],
+                                      nn_module=(name, dict(kwargs, pretrained=False)))
     return config
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """The environment with ``values`` set, restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def recipe_workspace(work: Path):
+    """``work`` as the workspace (``BAS_TPU_WORKDIR``; the action splits in
+    ``work/splits``) holding one ball game (fold 0's) and one action game as
+    gray stores; yields their names."""
+    with environ(BAS_TPU_WORKDIR=str(work), BAS_TPU_ACTION_SPLITS=str(work / "splits")):
+        game, action_game = ball.fold2games[0][0], "synthetic/action_game"
+        write_recipe_game(ball.DOMAIN.soccernet_dir / game, ball.DOMAIN.label_file,
+                          BALL_EVENTS, seed=20)
+        write_recipe_game(action.DOMAIN.soccernet_dir / action_game, action.DOMAIN.label_file,
+                          ACTION_EVENTS, seed=30)
+        (work / "splits").mkdir(parents=True)
+        for split in ("train", "val"):
+            (work / "splits" / f"{split}.json").write_text(json.dumps([action_game]))
+        yield game, action_game
 
 
 def check_map(name: str, results: dict) -> float:
@@ -1439,20 +1509,9 @@ def recipe_and_evaluation(dev, card: str, work: Path) -> dict:
     predictions scored, ensembled and zipped, on synthetic games in
     ``work`` (whose stage-1 checkpoint the training phase left there).
     Returns the launches of each path."""
-    env = {"BAS_TPU_WORKDIR": str(work), "BAS_TPU_ACTION_SPLITS": str(work / "splits")}
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
     launches: dict = {}
-    try:
-        t0 = time.perf_counter()
-        game, action_game = ball.fold2games[0][0], "synthetic/action_game"
-        write_recipe_game(ball.DOMAIN.soccernet_dir / game, ball.DOMAIN.label_file,
-                          BALL_EVENTS, seed=20)
-        write_recipe_game(action.DOMAIN.soccernet_dir / action_game, action.DOMAIN.label_file,
-                          ACTION_EVENTS, seed=30)
-        (work / "splits").mkdir()
-        for split in ("train", "val"):
-            (work / "splits" / f"{split}.json").write_text(json.dumps([action_game]))
+    t0 = time.perf_counter()
+    with recipe_workspace(work) as (game, _):
         store_gb = sum(p.stat().st_size for p in work.rglob("*.gray")) / 1e9
         log({"phase": "recipe_data", "store_gb": store_gb,
              "seconds": time.perf_counter() - t0})
@@ -1470,12 +1529,6 @@ def recipe_and_evaluation(dev, card: str, work: Path) -> dict:
         log({"phase": "recipe_eval", "card": card, "a_mAP_at1_ball": ball_map,
              "a_mAP_tight_action": action_map, "map_atol": MAP_ATOL, "launches": launches})
         log({"phase": "recipe_eval_done", "seconds": seconds})
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     return launches
 
 
@@ -2252,6 +2305,339 @@ def ensemble_export_parallel(dev, weights, frames: np.ndarray, raw_main: np.ndar
     return launches
 
 
+# --------------------------------------------------------------- phase 8 ---
+
+PHASE8_STAGES = {"ball_action": "sampling_weights_001", "action": "action_sampling_weights_002"}
+MULTICHAN_BATCH = 2     # multichan_stacker forward over (2, 15, 3, HEIGHT, WIDTH)
+CLASSIFIER_BATCH = 4    # classifier2d over (4, 3, HEIGHT, WIDTH)
+# the port's module names → the reference's (timm encoder blocks, the
+# argus MultiDimStacker's projections and nested 3D norms), applied in order
+REFERENCE_NAMES = [
+    (r"blocks_(\d+)_(\d+)\.", r"blocks.\1.\2."),
+    (r"^conv2d_projection_conv\.", "conv2d_projection.0."),
+    (r"^conv2d_projection_bn\.", "conv2d_projection.1."),
+    (r"^conv3d_projection_conv\.", "conv3d_projection.0."),
+    (r"^conv3d_projection_bn\.", "conv3d_projection.1."),
+    (r"^conv3d_encoder_(\d+)\.(bn\d)\.", r"conv3d_encoder.\1.\2.bn3d."),
+    (r"^conv3d_encoder_(\d+)\.", r"conv3d_encoder.\1."),
+]
+
+
+def reference_name(name: str) -> str:
+    for pattern, repl in REFERENCE_NAMES:
+        name = re.sub(pattern, repl, name)
+    return name
+
+
+def timm_layout_encoder(model_name: str, seed: int) -> dict:
+    """A seeded timm-layout ``tf_efficientnetv2_*`` state dict as an ImageNet
+    file holds it: 3 input channels, the head past the feature tap
+    (``conv_head``, ``bn2``, a 1000-class ``classifier``) and every BN's
+    ``num_batches_tracked``; numpy float32 (int64 counts)."""
+    encoder = init_weights(EfficientNetV2Features(model_name, 4, in_chans=3),
+                           torch.Generator().manual_seed(seed))
+    sd = {reference_name(k): v.numpy() for k, v in encoder.state_dict().items()}
+    rng = np.random.default_rng(seed)
+    last = EfficientNetV2Features.feature_channels(model_name, 4)
+    sd["conv_head.weight"] = (rng.standard_normal((1280, last, 1, 1))
+                              / math.sqrt(last)).astype(np.float32)
+    for leaf, value in (("weight", 1.0), ("bias", 0.0), ("running_mean", 0.0),
+                        ("running_var", 1.0)):
+        sd[f"bn2.{leaf}"] = np.full(1280, value, np.float32)
+    sd["classifier.weight"] = (rng.standard_normal((1000, 1280)) / math.sqrt(1280)).astype(
+        np.float32)
+    sd["classifier.bias"] = np.zeros(1000, np.float32)
+    for key in [k for k in sd if k.endswith(".running_mean")]:
+        sd[key.removesuffix("running_mean") + "num_batches_tracked"] = np.asarray(0, np.int64)
+    return sd
+
+
+def write_safetensors(path: Path, sd: dict) -> None:
+    """``sd`` as a ``.safetensors`` file, written here: an 8-byte
+    little-endian header length, the JSON header (dtype, shape, byte
+    offsets), then the raw little-endian bytes."""
+    header, blobs, offset = {}, [], 0
+    for name, arr in sd.items():
+        arr = np.ascontiguousarray(arr)
+        blob = arr.astype(arr.dtype.newbyteorder("<")).tobytes()
+        header[name] = {"dtype": {np.float32: "F32", np.int64: "I64"}[arr.dtype.type],
+                        "shape": list(arr.shape), "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for blob in blobs:
+            f.write(blob)
+
+
+def encoder_differs(state: dict, sd: dict) -> list:
+    """The encoder entries of a port model's ``state`` that are not bitwise
+    the timm file's tensor of the same reference name."""
+    prefix = "conv2d_encoder."
+    return [k for k, v in state.items() if k.startswith(prefix)
+            and not torch.equal(v.cpu(), torch.from_numpy(sd[reference_name(k[len(prefix):])]))]
+
+
+def pretrained_stages(dev, work: Path, launches: dict) -> dict:
+    """Stages 1 and 2 as shipped (``pretrained=True``), cut in depth only,
+    from a timm-layout file: stage 1's ``.safetensors`` under the full timm
+    name, stage 2's ``.pth`` under the bare arch name, each in its own
+    ``BAS_TPU_PRETRAINED_DIR``. The encoder's weights and BN statistics at
+    init must be bitwise the file's; the warp runs twice and GeM at least
+    once per step; losses finite."""
+    out = {}
+    with recipe_workspace(work) as (game, _):
+        for i, domain in enumerate((ball.DOMAIN, action.DOMAIN)):
+            name = PHASE8_STAGES[domain.name]
+            config = recipe_config(load_experiment_config(name, domain), pretrained=True)
+            nn_kwargs = config["argus_params"]["nn_module"][1]
+            if nn_kwargs.get("pretrained") is not True:
+                fail(f"{name} does not ship pretrained=True: {nn_kwargs}")
+            sd = timm_layout_encoder(nn_kwargs["model_name"], seed=10 + i)
+            weights_dir = work / f"pretrained_{name}"
+            weights_dir.mkdir()
+            if i == 0:
+                path = weights_dir / f"{nn_kwargs['model_name']}.safetensors"
+                write_safetensors(path, sd)
+            else:  # the bare arch name, the second name the trainer tries
+                bare = nn_kwargs["model_name"].replace("tf_", "").split(".")[0]
+                path = weights_dir / f"{bare}.pth"
+                torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+            save_dir = work / "phase8" / name
+            with environ(BAS_TPU_PRETRAINED_DIR=str(weights_dir)):
+                start = Trainer(config, list(domain.classes), save_dir / "init",
+                                device=dev).init_state()
+                differ = encoder_differs(start.model.state_dict(), sd)
+                del start
+                if differ:
+                    fail(f"{name}: encoder at init differs from {path.name}: {differ[:5]}")
+                torch.cuda.empty_cache()
+                if domain is ball.DOMAIN:
+                    games = dict(train_games=[game], val_games=[game], game2fold=ball.game2fold)
+                else:
+                    games = dict(train_games=action.load_games_list("train"),
+                                 val_games=action.load_games_list("val"))
+                path_name = f"stage{i + 1}_pretrained"
+                best = counted(path_name, launches, lambda: train_stage(
+                    config, domain, save_dir, device=dev, **games))
+            got = launches[path_name]
+            steps = sum(config["num_epochs"]) * -(-config["train_epoch_size"]
+                                                  // config["batch_size"])
+            losses = [best.get("train_loss"), best.get("val_loss")]
+            log({"phase": path_name, "experiment": name, "file": path.name,
+                 "file_bytes": path.stat().st_size, "encoder_tensors_bitwise": True,
+                 "launches": got, "steps": steps, "losses": losses})
+            if not all(x is not None and math.isfinite(x) for x in losses):
+                fail(f"{name} from {path.name}: losses {losses}")
+            if not (got["warp_H"] == got["warp_V"] == steps and got["gem"] >= steps):
+                fail(f"{name} did not launch the warp twice and GeM once per step: {got}")
+            out[name] = losses
+            torch.cuda.empty_cache()
+    return out
+
+
+def reference_checkpoint(dev, weights, frames: np.ndarray, raw_main: np.ndarray, work: Path,
+                         launches: dict):
+    """A reference argus ``.pth`` of the flagship (EMA and raw weights, the
+    reference's names) beside a lower-scored ``.ckpt`` of the same weights:
+    discovery picks the ``.pth``; both load to the same state bitwise; the
+    chunked engine predicts the video from each (TTA on), as the inference
+    phase's main path (``raw_main``) did from the same weights; the ``.pth``
+    is a stage-3 stage pretrain. Returns the ``.pth`` predictions and path."""
+    state, params = weights
+    raw_state = {k: v * 1.01 for k, v in state.items()}
+    directory = work / "reference"
+    directory.mkdir()
+    pth = directory / "model-012-0.900000.pth"
+    torch.save({"model_name": "BallActionModel",
+                "params": dict(params, device=["cuda:0"], amp=True, iter_size=1),
+                "nn_state_dict": {reference_name(k): v for k, v in state.items()},
+                "no_ema_nn_state_dict": {reference_name(k): v for k, v in raw_state.items()}},
+               pth)
+    model = build_model("multidim_stacker", **params["nn_module"][1])
+    ckpt = directory / "model-011-0.800000.ckpt"
+    save_checkpoint(ckpt, params, state_dict_to_flax_tree(state, model),
+                    state_dict_to_flax_tree(raw_state, model))
+    best = get_best_checkpoint_path(directory)
+    if best != pth:
+        fail(f"get_best_checkpoint_path picked {best}, not the higher-scored {pth.name}")
+    for use_ema, source in ((True, state), (False, raw_state)):
+        from_pth = load_inference_variables(pth, use_ema=use_ema, fold_bn=False)[0]
+        from_ckpt = load_inference_variables(ckpt, use_ema=use_ema, fold_bn=False)[0]
+        differ = [k for k in source if not (torch.equal(from_pth[k], source[k])
+                                            and torch.equal(from_ckpt[k], source[k]))]
+        if differ or sorted(from_pth) != sorted(source):
+            fail(f".pth (use_ema={use_ema}) state differs from the .ckpt's: {differ[:5]}")
+
+    engine = ChunkedVideoPredictor(pth, device=dev, chunk_size=CHUNK, tta=True)
+    run_video(engine, frames[:CHUNK + 30])  # warm-up
+    idx, raw_pth, _ = counted("pth_predict", launches, lambda: run_video(engine, frames))
+    check_outputs("predictions from the .pth", idx, raw_pth, len(raw_main))
+    expect_launches("pth_predict", launches["pth_predict"], CHUNKS, CHUNKS * DW_PER_CHUNK)
+    del engine
+    _, raw_ckpt, _ = run_video(ChunkedVideoPredictor(ckpt, device=dev, chunk_size=CHUNK,
+                                                     tta=True), frames)
+    diff = agree("pth_vs_ckpt_predictions", raw_pth, raw_ckpt, PRED_BF16_ATOL)
+    diff_main = agree("pth_vs_main_path_predictions", raw_pth, raw_main, PRED_BF16_ATOL)
+
+    config = recipe_config(load_experiment_config("ball_tuning_001", ball.DOMAIN))
+    pretrain, _ = resolve_pretrain_variables(pth)
+    start = Trainer(config, list(ball.classes), work / "stage3_from_pth",
+                    device=dev).init_state(pretrain)
+    start_state = start.model.state_dict()
+    differ = [k for k in state if not torch.equal(start_state[k].cpu(), state[k])]
+    del start, start_state
+    if differ:
+        fail(f"stage 3 from the .pth: tensors not loaded: {differ[:5]}")
+    log({"phase": "reference_pth", "picked": best.name, "state_bitwise": True,
+         "pth_vs_ckpt_max_abs_diff": diff, "pth_vs_main_path_max_abs_diff": diff_main,
+         "launches": launches["pth_predict"],
+         "stage3_pretrain_tensors_loaded": len(state)})
+    return raw_pth, pth
+
+
+def s2d_stem(dev, pth: Path, raw_pth: np.ndarray, frames: np.ndarray, launches: dict) -> None:
+    """``PredictorBase(s2d_stem=True)`` against the standard stem on the same
+    checkpoint: bf16 over the video (TTA on), float32 with TF32 off over its
+    first 46 frames."""
+    engine = ChunkedVideoPredictor(pth, device=dev, chunk_size=CHUNK, tta=True, s2d_stem=True)
+    run_video(engine, frames[:CHUNK + 30])
+    idx, raw, _ = counted("s2d_predict", launches, lambda: run_video(engine, frames))
+    check_outputs("s2d stem", idx, raw, len(raw_pth))
+    expect_launches("s2d_predict", launches["s2d_predict"], CHUNKS, CHUNKS * DW_PER_CHUNK)
+    del engine
+    diff_bf16 = agree("s2d_vs_standard_stem_bf16", raw, raw_pth, PRED_BF16_ATOL)
+    short = frames[:46]
+    f32 = {s2d: run_video(ChunkedVideoPredictor(pth, device=dev, chunk_size=8,
+                                                dtype=torch.float32, s2d_stem=s2d), short)[1]
+           for s2d in (False, True)}
+    diff_f32 = agree("s2d_vs_standard_stem_f32", f32[True], f32[False], PRED_F32_ATOL)
+    log({"phase": "s2d_stem", "bf16_max_abs_diff": diff_bf16, "f32_max_abs_diff": diff_f32,
+         "launches": launches["s2d_predict"]})
+
+
+def color_clips(frames: np.ndarray, count: int, length: int) -> torch.Tensor:
+    """``count`` (length, 3, H, W) uint8 clips from the gray video (every
+    second frame; channels the frame, its negative and the next frame)."""
+    clips = []
+    for b in range(count):
+        idx = np.arange(b * 2 * length, (b + 1) * 2 * length, 2) % (len(frames) - 1)
+        clips.append(np.stack([frames[idx], 255 - frames[idx], frames[idx + 1]], axis=1))
+    return torch.from_numpy(np.stack(clips))
+
+
+def multichan(dev, frames: np.ndarray, launches: dict) -> None:
+    """``multichan_stacker`` (3 channels, the flagship geometry) over
+    (MULTICHAN_BATCH, 15, 3, H, W): the depthwise kernel's route against the
+    grouped conv's, bf16."""
+    kwargs = dict(NN_KWARGS, num_chans=3)
+    models = {}
+    for use_kernel in (True, False):
+        model = build_model("multichan_stacker", dtype=torch.bfloat16,
+                            dw3d_use_kernel=use_kernel, **kwargs)
+        init_weights(model, torch.Generator().manual_seed(5))
+        models[use_kernel] = model.to(dev).eval()
+    x = color_clips(frames, MULTICHAN_BATCH, kwargs["num_frames"]).to(dev).float() / 255.0
+    calibrate_bn(models[True], x)
+    models[False].load_state_dict(models[True].state_dict())
+    with torch.no_grad():
+        out = counted("multichan", launches, lambda: torch.sigmoid(models[True](x).float()))
+        ref = torch.sigmoid(models[False](x).float())
+    got = launches["multichan"]
+    diff = agree("multichan_kernel_vs_default", out.cpu().numpy(), ref.cpu().numpy(),
+                 PRED_BF16_ATOL)
+    log({"phase": "multichan", "input": list(x.shape), "max_abs_diff": diff, "launches": got})
+    if not (got["gem"] >= 1 and got["dwconv3d"] == kwargs["num_3d_blocks"]):
+        fail(f"multichan did not launch GeM and dwconv3d once per 3D block: {got}")
+
+
+def classifier2d(dev, frames: np.ndarray, launches: dict) -> None:
+    """``classifier2d`` (b0, GeM) over (CLASSIFIER_BATCH, 3, H, W): one bf16
+    forward and backward in training mode, then, on the weights it left,
+    the BN-folded forward against the unfolded one in float32 (TF32 off),
+    where the fold's own error is not lost in bf16 rounding through the
+    encoder's depth."""
+    kwargs = dict(model_name=NN_KWARGS["model_name"], num_classes=2, in_chans=3, pool="gem")
+    model = build_model("classifier2d", dtype=torch.bfloat16, **kwargs)
+    init_weights(model, torch.Generator().manual_seed(6))
+    model.to(dev).eval()
+    x = color_clips(frames, CLASSIFIER_BATCH, 1)[:, 0].to(dev).float() / 255.0
+    calibrate_bn(model, x)
+    targets = torch.tensor([[1.0, 0.0], [0.0, 1.0]] * (CLASSIFIER_BATCH // 2) + [[1.0, 1.0]]
+                           * (CLASSIFIER_BATCH % 2), device=dev)
+    model.train()
+
+    def step():
+        loss = F.binary_cross_entropy_with_logits(model(x), targets)
+        loss.backward()
+        return loss
+
+    loss = counted("classifier2d_train", launches, step).item()
+    grads = [p.grad for p in model.parameters()]
+    if not (math.isfinite(loss) and all(g is not None and torch.isfinite(g).all() for g in grads)):
+        fail(f"classifier2d train step: loss {loss}, a gradient missing or not finite")
+    state = model.state_dict()
+    model.eval()
+    model.dtype = torch.float32  # the parameters are stored in float32
+    folded = build_model("classifier2d", bn_folded=True, **kwargs)
+    folded.load_state_dict(fold_bn_state_dict(state))
+    folded.to(dev).eval()
+    with torch.no_grad():
+        ref = torch.sigmoid(model(x))
+        out = counted("classifier2d_folded", launches, lambda: torch.sigmoid(folded(x)))
+    diff = agree("classifier2d_folded_vs_unfolded_f32", out.cpu().numpy(), ref.cpu().numpy(),
+                 PRED_F32_ATOL)
+    log({"phase": "classifier2d", "input": list(x.shape), "loss": loss, "max_abs_diff": diff,
+         "launches": {k: launches[k] for k in ("classifier2d_train", "classifier2d_folded")}})
+    for path in ("classifier2d_train", "classifier2d_folded"):
+        if not launches[path]["gem"] >= 1:
+            fail(f"{path} did not launch GeM: {launches[path]}")
+
+
+def family_kernels(dev) -> dict:
+    """GeM and the depthwise conv at the multi-channel stacker's shapes
+    (its batch of MULTICHAN_BATCH clips), against their plain versions."""
+    rows = {"gem_pool_multichan": check_gem(dev, (MULTICHAN_BATCH, 23, 40, 5 * 256),
+                                            "multichan", per_kernel=True),
+            "dwconv3d_multichan": check_dwconv(dev, 1, n=MULTICHAN_BATCH, path="multichan",
+                                               per_kernel=True)}
+    torch.cuda.empty_cache()
+    return rows
+
+
+def weights_and_family(dev, card: str, weights, frames: np.ndarray, raw_main: np.ndarray,
+                       work: Path) -> tuple[dict, dict]:
+    """Phase 8: ImageNet weight files and reference ``.pth`` checkpoints,
+    the s2d stem, ``multichan_stacker`` and ``classifier2d``, at the
+    flagship's width on the inference phase's ``weights``, video and main
+    path predictions; returns each path's launches and the kernel rows at
+    the new shapes."""
+    launches: dict = {}
+    t0 = time.perf_counter()
+    steps = {}
+
+    def step(name, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        steps[name] = time.perf_counter() - start
+        return out
+
+    rows = step("kernels", family_kernels, dev)
+    losses = step("pretrained_stages", pretrained_stages, dev, work, launches)
+    raw_pth, pth = step("reference_pth", reference_checkpoint, dev, weights, frames, raw_main,
+                        work, launches)
+    step("s2d_stem", s2d_stem, dev, pth, raw_pth, frames, launches)
+    step("multichan", multichan, dev, frames, launches)
+    step("classifier2d", classifier2d, dev, frames, launches)
+    log({"phase": "weights_and_family_done", "card": card, "losses": losses,
+         "launches": launches, "seconds_by_step": steps, "seconds": time.perf_counter() - t0})
+    return launches, rows
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -2304,6 +2690,11 @@ def main() -> None:
     t0 = time.perf_counter()
     new_launches = ensemble_export_parallel(dev, weights, video, raw_main, card)
     log({"phase": "ensemble_export_parallel_done", "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        family_launches, family_rows = weights_and_family(dev, card, weights, video, raw_main,
+                                                          Path(work))
+    rows.update(family_rows)
 
     # one row per kernel and main path; the warp's H and V passes, two
     # launches of one kernel at different shapes and access patterns, each
@@ -2320,15 +2711,20 @@ def main() -> None:
                             "fold_parallel")}
     inference_paths = {"inference": launches, "eval_predict": recipe_launches["eval_predict"],
                        "action_predict": recipe_launches["action_predict"], **serving_paths,
-                       **new_inference_paths}
+                       **new_inference_paths, "pth_predict": family_launches["pth_predict"],
+                       "s2d_predict": family_launches["s2d_predict"]}
     training_paths = {"train": train_launches, "action_train": recipe_launches["action_train"],
                       "stage3_train": recipe_launches["stage3_train"],
-                      "dp_train": new_launches["dp_train"]}
+                      "dp_train": new_launches["dp_train"],
+                      "stage1_pretrained": family_launches["stage1_pretrained"],
+                      "stage2_pretrained": family_launches["stage2_pretrained"]}
     sources = {
         "gem_pool_inference": ("gem", "ball_action_spotting_torch/csrc/gem.cu",
                                "ball_action_spotting_tpu/ops/pallas_gem.py:64", inference_paths),
         "gem_pool_train": ("gem", "ball_action_spotting_torch/csrc/gem.cu",
-                           "ball_action_spotting_tpu/ops/pallas_gem.py:64", training_paths),
+                           "ball_action_spotting_tpu/ops/pallas_gem.py:64",
+                           {**training_paths,
+                            "classifier2d_train": family_launches["classifier2d_train"]}),
         "dwconv3d": ("dwconv3d", "ball_action_spotting_torch/csrc/dwconv3d.cu",
                      "ball_action_spotting_tpu/ops/pallas_dwconv3d.py:105", inference_paths),
         "warp_resample_h": ("warp_H", "ball_action_spotting_torch/csrc/warp.cu",
@@ -2344,6 +2740,12 @@ def main() -> None:
                                   {p: serving_paths[p] for p in ("serve_device", "server")}),
         "dwconv3d_serve": ("dwconv3d", "ball_action_spotting_torch/csrc/dwconv3d.cu",
                            "ball_action_spotting_tpu/ops/pallas_dwconv3d.py:105", serving_paths),
+        "gem_pool_multichan": ("gem", "ball_action_spotting_torch/csrc/gem.cu",
+                               "ball_action_spotting_tpu/ops/pallas_gem.py:64",
+                               {"multichan": family_launches["multichan"]}),
+        "dwconv3d_multichan": ("dwconv3d", "ball_action_spotting_torch/csrc/dwconv3d.cu",
+                               "ball_action_spotting_tpu/ops/pallas_dwconv3d.py:105",
+                               {"multichan": family_launches["multichan"]}),
     }
     kernels = []
     for name, (kernel, source, replaces, paths) in sources.items():

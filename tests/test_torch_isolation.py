@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from ball_action_spotting_torch.device import resolve_device
+from ball_action_spotting_torch.models import build_model
 from ball_action_spotting_torch.parallel.mesh import make_mesh
 from ball_action_spotting_torch.predict.export import ExportedChunkPredictor
 from ball_action_spotting_torch.predict.fused import FusedFoldsPredictor
@@ -23,6 +24,8 @@ from ball_action_spotting_torch.predict.streaming import (
     ChunkedVideoPredictor,
     StreamingPredictor,
 )
+from ball_action_spotting_torch.train.engine import Trainer
+from tests.test_train_engine import tiny_config
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -51,7 +54,8 @@ print(len(names))
 
 
 NEW_MODULES = ("predict.fused", "predict.export", "predict.host_loop", "parallel.mesh",
-               "parallel.multihost", "cli.export_model")
+               "parallel.multihost", "cli.export_model", "models.torch_import",
+               "models.pretrained", "models.multichan_stacker", "models.classifier2d")
 
 
 def test_port_imports_no_jax():
@@ -94,3 +98,24 @@ def test_fused_export_and_grid_entry_points_need_cuda_or_cpu(tmp_path):
         ExportedChunkPredictor(tmp_path / "chunk.bastorx")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_mesh(1, 1)
+
+
+def test_s2d_engines_and_new_families_need_cuda_or_cpu(tmp_path):
+    """``s2d_stem`` and a reference ``.pth`` change nothing in the device
+    rule; the new families build on the CPU and a Trainer of them still
+    refuses a missing CUDA device."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is about a machine without CUDA")
+    for engine in (ChunkedVideoPredictor, StreamingPredictor, MultiStreamPredictor):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            engine(tmp_path / "model-001-0.5.pth", s2d_stem=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FusedFoldsPredictor([tmp_path / "model-001-0.5.pth"], s2d_stem=True)
+    for name, kwargs in (("multichan_stacker", dict(num_chans=3)),
+                         ("classifier2d", dict(pool="gem")), ("timm", {})):
+        config = tiny_config()
+        config["argus_params"]["nn_module"] = (name, dict(model_name="efficientnetv2_tiny",
+                                                          num_classes=2, **kwargs))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Trainer(config, ["a", "b"], tmp_path / name)
+        build_model(name, model_name="efficientnetv2_tiny", **kwargs).to("cpu")

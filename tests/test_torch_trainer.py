@@ -37,6 +37,7 @@ from ball_action_spotting_torch.data import (
     make_synthetic_video_data,
 )
 from ball_action_spotting_torch.domains import ball
+from ball_action_spotting_torch.models.pretrained import PretrainedWeightsError
 from ball_action_spotting_torch.ops.augment import AugmentConfig
 from ball_action_spotting_torch.predict.streaming import ChunkedVideoPredictor
 from ball_action_spotting_torch.train.__main__ import parse_arguments
@@ -182,13 +183,16 @@ def test_port_configs_equal_the_jax_configs(name):
     assert paths.configs_dir() == ROOT / "ball_action_spotting_torch" / "configs"
 
 
-def test_trainer_and_cli_need_cuda_or_cpu(tmp_path):
+def test_trainer_and_cli_need_cuda_or_cpu(tmp_path, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("this check is about a machine without CUDA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(tiny_config(), CLASSES, tmp_path)
     args = parse_arguments(["--experiment", "sampling_weights_001", "--folds", "0,3"])
     assert (args.device, args.folds, args.seed) == ("cuda", "0,3", 0)
+    # the shipped stage-1 config needs its ImageNet file and never trains
+    # from a random init without it
+    monkeypatch.setenv("BAS_TPU_PRETRAINED_DIR", str(tmp_path / "empty"))
     config = load_experiment_config("sampling_weights_001", ball.DOMAIN)
-    with pytest.raises(NotImplementedError, match="pretrained"):
+    with pytest.raises(PretrainedWeightsError, match="pretrained=True"):
         Trainer(config, CLASSES, tmp_path, device="cpu").init_state()
