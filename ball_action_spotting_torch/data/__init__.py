@@ -7,6 +7,7 @@ from ball_action_spotting_torch.data.dataset import (
 from ball_action_spotting_torch.data.loader import ClipLoader, prefetch_to_device
 from ball_action_spotting_torch.data.video import (
     FrameSource,
+    HardSyntheticSource,
     OpenCVSource,
     SyntheticSource,
     make_synthetic_video_data,
@@ -17,6 +18,7 @@ __all__ = [
     "ClipDataset",
     "ClipLoader",
     "FrameSource",
+    "HardSyntheticSource",
     "OpenCVSource",
     "SyntheticSource",
     "TrainClipDataset",

@@ -72,5 +72,9 @@ class Domain:
         return self.dir / "predictions"
 
     @property
+    def visualizations_dir(self) -> Path:
+        return self.dir / "visualizations"
+
+    @property
     def soccernet_dir(self) -> Path:
         return paths.soccernet_dir() / self.soccernet_subdir

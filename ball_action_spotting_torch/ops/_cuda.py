@@ -1,25 +1,21 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/``.
+"""The hand-written CUDA kernels of ``csrc/``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` for ``sm_90a`` into its own shared library, loaded with ``ctypes``.
-The build runs at first use (or up front through ``build_all``, which starts
-one ``nvcc`` per source, all at once) into ``build/torch_kernels/`` beside
-the package; the library name carries a hash of its source, so an edited
-source is rebuilt and a stale library is never loaded.
+``nvcc`` for ``sm_90a`` into its own shared library, loaded with ``ctypes``
+(``native.py``: the hashed library name, the build at first use or through
+``build_all``, one ``nvcc`` per source, all at once).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import shutil
-import subprocess
-import threading
 from pathlib import Path
 
-CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+from ball_action_spotting_torch.native import NativeLibrary, build_all
+
+__all__ = ["CudaKernel", "NVCC_FLAGS", "build_all", "stream_handle"]
+
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,65 +32,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-class CudaKernel:
+class CudaKernel(NativeLibrary):
     """One ``csrc/<name>.cu`` library: its build, its C entry point and the
     count of launches its wrapper made.
 
     ``signature`` lists the ctypes argument types of the entry point, which
     returns a ``cudaError_t`` (0 on success)."""
 
+    suffix = ".cu"
+
     def __init__(self, name: str, entry: str, signature: list):
-        self.name = name
+        super().__init__(name)
         self.entry = entry
         self.signature = signature
         self.launches = 0
         self.launches_by: dict[str, int] = {}
-        self.build_log = ""
         self._fn = None
-        self._lock = threading.Lock()
 
-    @property
-    def source(self) -> Path:
-        return CSRC_DIR / f"{self.name}.cu"
-
-    @property
-    def library(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
-
-    def start_build(self) -> subprocess.Popen | None:
-        """Start ``nvcc`` for this source unless its library exists."""
-        lib = self.library
-        if lib.exists():
-            return None
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        proc.tmp_path, proc.lib_path = tmp, lib  # type: ignore[attr-defined]
-        return proc
-
-    def finish_build(self, proc: subprocess.Popen | None) -> None:
-        if proc is None:
-            return
-        out, _ = proc.communicate()
-        self.build_log = out
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {self.source}:\n{out}")
-        os.replace(proc.tmp_path, proc.lib_path)  # type: ignore[attr-defined]
+    def compile_command(self, output: Path) -> list[str]:
+        return [_nvcc(), *NVCC_FLAGS, "-o", str(output), str(self.source)]
 
     def function(self):
         """The loaded C entry point, building the library first if needed."""
-        with self._lock:
-            if self._fn is None:
-                self.finish_build(self.start_build())
-                lib = ctypes.CDLL(str(self.library))
-                fn = getattr(lib, self.entry)
-                fn.argtypes = self.signature
-                fn.restype = ctypes.c_int
-                self._fn = fn
-            return self._fn
+        if self._fn is None:
+            fn = getattr(self.load(), self.entry)
+            fn.argtypes = self.signature
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
 
     def launch(self, *args, tag: str | None = None) -> None:
         """Call the entry point on the current stream's work; raise on a
@@ -111,17 +76,6 @@ class CudaKernel:
     def reset_counts(self) -> None:
         self.launches = 0
         self.launches_by = {}
-
-
-def build_all(kernels) -> dict[str, str]:
-    """Build every kernel's library at once (one ``nvcc`` per source, all
-    started together) and load them. Returns each kernel's build log."""
-    procs = [(k, k.start_build()) for k in kernels]
-    for k, proc in procs:
-        k.finish_build(proc)
-    for k in kernels:
-        k.function()
-    return {k.name: k.build_log for k in kernels}
 
 
 def stream_handle(tensor) -> int:

@@ -117,6 +117,16 @@ class Trainer:
         compute_dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda",
     ):
+        if config.get("pipeline_parallel"):
+            # JAX's Trainer runs this key as a 2-stage GPipe of n_micro
+            # microbatches (parallel/pipeline.py); training the full batch in
+            # one step instead would silently change BN statistics and mixup
+            # pairs. Slice 12 ports it, with JAX's three refusals: together
+            # with iter_size > 1, under several processes, and a batch that
+            # lcm(devices, data axis * n_micro) does not divide.
+            raise NotImplementedError(
+                "pipeline_parallel (the 2-stage GPipe over the mesh's model axis) is not "
+                "ported yet; it is queued for slice 12 of the port (ROADMAP.md, A)")
         self.device = resolve_device(device)
         self.config = config
         self.classes = classes

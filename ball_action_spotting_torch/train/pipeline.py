@@ -21,6 +21,7 @@ from ball_action_spotting_torch.core.spotting import load_raw_predictions
 from ball_action_spotting_torch.core.targets import MaxWindowTargetsProcessor
 from ball_action_spotting_torch.data.dataset import TrainClipDataset, ValClipDataset
 from ball_action_spotting_torch.data.loader import ClipLoader
+from ball_action_spotting_torch.data.video import make_sequential_factory
 from ball_action_spotting_torch.domains.base import Domain
 from ball_action_spotting_torch.ops.augment import AugmentConfig
 from ball_action_spotting_torch.ops.mixup import make_mixup_fn
@@ -86,8 +87,12 @@ def build_datasets(config: dict, domain: Domain, train_games: Sequence[str],
         image_size=image_size, epoch_size=config["train_epoch_size"],
         videos_sampling_weights=weights, frame_index_shaker=shaker, base_seed=base_seed,
     )
+    # validation enumerates actions in video order: a rolling buffer over a
+    # codec source decodes each frame once (stores pass through unwrapped)
+    val_buffer = ap["frame_stack_size"] * ap["frame_stack_step"] * 2
     val_dataset = ValClipDataset(val_data, list(domain.classes), indexes_generator,
-                                 target_proc, image_size=image_size)
+                                 target_proc, image_size=image_size,
+                                 source_factory=make_sequential_factory(val_buffer))
     return train_dataset, val_dataset
 
 

@@ -1,17 +1,19 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): kernels, the
 flagship chunked inference path, the flagship training path, the rest of
 the four-stage recipe with its evaluation, the serving path, the
-fold-fused ensemble, the sealed export and the parallel paths, and the
+fold-fused ensemble, the sealed export and the parallel paths, the
 weight sources and model families (ImageNet files, reference ``.pth``
-checkpoints, the s2d stem, ``multichan_stacker``, ``classifier2d``).
+checkpoints, the s2d stem, ``multichan_stacker``, ``classifier2d``), and
+the host data path (gray stores, the native gather, the rehearsal CLI).
 
     python3 chip_smoke.py
 
 Phases, in order (any failure exits nonzero; each prints its seconds):
 
 1. Prints the card's name and power limit (nvidia-smi) and builds every
-   kernel of ``ball_action_spotting_torch/csrc`` with nvcc (one process per
-   source, all at once), printing the build time and ptxas' report.
+   kernel of ``ball_action_spotting_torch/csrc`` with nvcc and the gray
+   store's host gather with g++ (one process per source, all at once),
+   printing the build time and ptxas' report.
 2. Holds each kernel against its plain PyTorch version at the main paths'
    shapes, and times kernel, plain version and the one PyTorch call that
    computes the same function (CUDA events around the call, median of 10:
@@ -130,10 +132,35 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    over (4, 3, 736, 1280), one bf16 forward and backward, then the folded
    forward against the unfolded one in float32. GeM and the depthwise conv
    are timed at the multi-channel stacker's shapes.
-9. Prints the ``kernels`` JSON line (one row per kernel and main path:
+9. The host data path, in its own temporary workspace, each stage timed
+   by ``utils/profiling.py::StageTimer``: two ball games of two halves of
+   400 frames at 1280x720 written as gray stores (1.47 GB); batches of the
+   flagship's clips (15 frames at step 2; 4 and 128 clips, indexes clamped
+   at both ends) gathered into padded 736-row slots by the native reader at
+   1, 4 and 8 threads and by the numpy reader, and 128 clips one a call
+   from ``num_decode_workers`` threads at once, as the loader asks for
+   them, bitwise equal, clips/s and GB/s; the
+   flagship trainer (8 steps, 1 validation pass) through
+   ``train/pipeline.py``'s datasets over the stores (validation through
+   ``make_sequential_factory``, a store unwrapped), then the loader's
+   signed share of the fit loop (ms a step with loading against ms a step
+   on a batch on the card, 16 steps, 2 reps in turns); two train steps under
+   ``device_trace``, whose trace must name the GeM and warp kernels; the
+   ball predict CLI from that checkpoint over one game (TTA on), its fps
+   beside phase 3's and its predictions within the bf16 tolerance of
+   ``ChunkedVideoPredictor`` over the frames as an array;
+   ``smooth_scores_batch`` on the card over a half's 2 × 67,500 scores and
+   a row shorter than the kernel's radius, against scipy within 2e-3; then
+   the steps of ``cli/rehearsal.py`` in process over every fold's and
+   challenge game (hard links to the stores), each stage cut in depth as
+   in phase 5:
+   stage 1 over all folds (stage 3 reads every train game's out-of-fold
+   predictions), stages 2-4 on fold 0, the predictions, the ensemble and
+   its mAP, with stage 4's losses finite and every step's launches counted.
+10. Prints the ``kernels`` JSON line (one row per kernel and main path:
    GeM on the inference and on the training path, the depthwise conv, and
    the warp's H and V passes, each with its own launches and bound, and
-   ``launches_by_path``: the recipe, serving, phase-7 and phase-8 paths of
+   ``launches_by_path``: the recipe, serving, phase-7, -8 and -9 paths of
    the same kind, each of which must launch it; then GeM and the depthwise
    conv at the serving and the multi-channel shapes, each with its paths),
    then the device line last.
@@ -146,6 +173,7 @@ otherwise run float32 convolutions in TF32.
 from __future__ import annotations
 
 import contextlib
+import csv
 import gc
 import hashlib
 import json
@@ -162,12 +190,14 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.multiprocessing as mp
 import torch.nn.functional as F
+from scipy.ndimage import gaussian_filter1d
 
 from ball_action_spotting_torch.cli import (
     action_evaluate,
@@ -175,12 +205,19 @@ from ball_action_spotting_torch.cli import (
     action_train,
     ball_ensemble,
     export_model,
+    rehearsal,
 )
 from ball_action_spotting_torch.convert import flax_tree_to_state_dict, state_dict_to_flax_tree
 from ball_action_spotting_torch.core.indexes import StackIndexesGenerator
-from ball_action_spotting_torch.core.postprocess import raw_predictions_to_actions
+from ball_action_spotting_torch.core.postprocess import (
+    raw_predictions_to_actions,
+    smooth_scores_batch,
+)
 from ball_action_spotting_torch.core.sampling import ball_sampling_weights
-from ball_action_spotting_torch.core.spotting import write_game_spotting_results
+from ball_action_spotting_torch.core.spotting import (
+    load_raw_predictions,
+    write_game_spotting_results,
+)
 from ball_action_spotting_torch.core.targets import MaxWindowTargetsProcessor
 from ball_action_spotting_torch.data import (
     ClipLoader,
@@ -188,7 +225,12 @@ from ball_action_spotting_torch.data import (
     ValClipDataset,
     make_synthetic_video_data,
 )
-from ball_action_spotting_torch.data.gray_store import write_gray_store
+from ball_action_spotting_torch.data.gray_store import (
+    LIBRARY as GRAY_STORE_LIBRARY,
+    GrayStore,
+    GrayStoreSource,
+    write_gray_store,
+)
 from ball_action_spotting_torch.data.video import SyntheticSource
 from ball_action_spotting_torch.domains import action, ball
 from ball_action_spotting_torch.eval.soccernet_map import evaluate_games
@@ -205,7 +247,7 @@ from ball_action_spotting_torch.ops import KERNELS
 from ball_action_spotting_torch.ops import dwconv3d as dw_ops
 from ball_action_spotting_torch.ops import gem as gem_ops
 from ball_action_spotting_torch.ops import warp as warp_ops
-from ball_action_spotting_torch.ops._cuda import build_all
+from ball_action_spotting_torch.native import build_all
 from ball_action_spotting_torch.ops.augment import (
     AugmentConfig,
     apply_augment,
@@ -218,7 +260,7 @@ from ball_action_spotting_torch.ops.dwconv3d import (
 )
 from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_reference
 from ball_action_spotting_torch.ops.losses import FocalLoss
-from ball_action_spotting_torch.ops.mixup import Mixup
+from ball_action_spotting_torch.ops.mixup import Mixup, make_mixup_fn
 from ball_action_spotting_torch.parallel import multihost
 from ball_action_spotting_torch.parallel.mesh import make_mesh
 from ball_action_spotting_torch.parallel.multihost import process_slice
@@ -250,10 +292,18 @@ from ball_action_spotting_torch.train.checkpoint import (
 )
 from ball_action_spotting_torch.train.engine import Trainer
 from ball_action_spotting_torch.train.optim import build_optimizer
-from ball_action_spotting_torch.train.pipeline import resolve_stage_pretrain, train_stage
+from ball_action_spotting_torch.train.pipeline import (
+    build_datasets,
+    resolve_stage_pretrain,
+    train_stage,
+)
 from ball_action_spotting_torch.train.state import TrainState
 from ball_action_spotting_torch.train.steps import make_train_step, normalize_frames
-from ball_action_spotting_torch.utils.experiments import load_experiment_config
+from ball_action_spotting_torch.utils.experiments import (
+    load_experiment_config,
+    num_decode_workers,
+)
+from ball_action_spotting_torch.utils.profiling import StageTimer, device_trace
 from ball_action_spotting_torch.utils.recipe import spotting_recipe
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
@@ -512,10 +562,12 @@ def card_line() -> str:
 
 
 def build_kernels() -> None:
+    """Every kernel's library and the gray store's host library, one
+    compiler per source, all started together."""
     t0 = time.perf_counter()
-    logs = build_all(KERNELS)
+    logs = build_all([*KERNELS, GRAY_STORE_LIBRARY])
     log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-         "kernels": [k.name for k in KERNELS]})
+         "kernels": [k.name for k in KERNELS], "host": [GRAY_STORE_LIBRARY.name]})
     for name, text in logs.items():
         for line in text.splitlines():
             if "ptxas info" in line and ("registers" in line or "spill" in line):
@@ -966,10 +1018,11 @@ def agree(name: str, a: np.ndarray, b: np.ndarray, atol: float) -> float:
     return diff
 
 
-def flagship(dev, card: str) -> tuple[dict, tuple, np.ndarray, np.ndarray]:
+def flagship(dev, card: str) -> tuple[dict, tuple, np.ndarray, np.ndarray, dict]:
     """The chunked inference phase; returns its launches, the seeded
     weights and synthetic video, which the serving and ensemble phases use
-    again, and the main path's predictions."""
+    again, the main path's predictions, and its fps (which phase 9 compares
+    predicting from a store with)."""
     num_frames = 3 * CHUNK + 30  # 3 chunks of predictions
     src = SyntheticSource(num_frames=num_frames, height=HEIGHT, width=WIDTH, seed=0,
                           events={100: 0, 200: 1, 300: 0})
@@ -1037,7 +1090,7 @@ def flagship(dev, card: str) -> tuple[dict, tuple, np.ndarray, np.ndarray]:
     log({"phase": "fps", **fps})
     profile_chunks(predictor(dw3d_use_kernel=True), frames)
     profile_chunks(main, frames)
-    return launches, weights, frames, raw_main
+    return launches, weights, frames, raw_main, fps
 
 
 # --------------------------------------------------------------- phase 4 ---
@@ -1297,23 +1350,25 @@ def counted(name: str, launches: dict, fn):
     return out
 
 
-def write_recipe_game(game_dir: Path, label_file: str, events: dict, seed: int) -> None:
-    """Two halves of ``RECIPE_FRAMES`` synthetic WIDTH×VIDEO_HEIGHT frames as gray
-    stores (``<half>_720p.mkv.gray``, a bright square near each event) with
-    their info sidecars, and the label file: ``events`` maps each half to
-    {frame: (label, visibility or None)}."""
+def write_recipe_game(game_dir: Path, label_file: str, events: dict, seed: int,
+                      frames: int | None = None) -> None:
+    """Two halves of ``frames`` (default ``RECIPE_FRAMES``) synthetic
+    WIDTH×VIDEO_HEIGHT frames as gray stores (``<half>_720p.mkv.gray``, a
+    bright square near each event) with their info sidecars, and the label
+    file: ``events`` maps each half to {frame: (label, visibility or None)}."""
+    frames = frames or RECIPE_FRAMES
     classes = sorted({label for half in events.values() for label, _ in half.values()})
     annotations = []
     for half, half_events in events.items():
-        src = SyntheticSource(num_frames=RECIPE_FRAMES, height=VIDEO_HEIGHT, width=WIDTH,
+        src = SyntheticSource(num_frames=frames, height=VIDEO_HEIGHT, width=WIDTH,
                               seed=seed + half,
                               events={f: classes.index(lab) for f, (lab, _) in half_events.items()})
         video = game_dir / f"{half}_720p.mkv"
         write_gray_store(Path(str(video) + ".gray"),
-                         (src.fetch_frame(i) for i in range(RECIPE_FRAMES)), VIDEO_HEIGHT,
-                         WIDTH, RECIPE_FRAMES)
+                         (src.fetch_frame(i) for i in range(frames)), VIDEO_HEIGHT,
+                         WIDTH, frames)
         Path(str(video) + ".info.json").write_text(json.dumps(
-            dict(frame_count=RECIPE_FRAMES, fps=25.0, width=WIDTH, height=VIDEO_HEIGHT)))
+            dict(frame_count=frames, fps=25.0, width=WIDTH, height=VIDEO_HEIGHT)))
         for frame, (label, visibility) in half_events.items():
             seconds = frame // 25
             ann = {"gameTime": f"{half} - {seconds // 60:02d}:{seconds % 60:02d}",
@@ -2638,6 +2693,413 @@ def weights_and_family(dev, card: str, weights, frames: np.ndarray, raw_main: np
     return launches, rows
 
 
+# --------------------------------------------------------------- phase 9 ---
+
+STORE_FRAMES = 400    # per half: two ball games of two halves at WIDTH×VIDEO_HEIGHT
+STORE_FOLDS = (0, 1)  # the folds whose games phase 9 writes; fold 0's is validated on
+STORE_EVENTS = {half: {f: (ball.classes[k % 2], None)
+                       for k, f in enumerate(range(40, STORE_FRAMES - 20, 40))}
+                for half in (1, 2)}
+STORE_EXPERIMENT = "store_train"
+GATHER_BATCHES = (BATCH, 128)  # the flagship's train batch, and a large batch of clips
+GATHER_THREADS = (1, 4, 8)
+GATHER_REPS = 3
+LOADER_STEPS = 16  # steps of each rep of the loader-share measurement
+LOADER_REPS = 2
+SMOOTH_FRAMES = 45 * 60 * 25   # a 45-minute half at 25 fps
+SMOOTH_SHORT = 5               # a row shorter than the kernel's radius (12 at sigma 3)
+SMOOTH_ATOL = 2e-3             # tests/test_core_postprocess.py's tolerance against scipy
+TRACE_NAMES = ("gem_partial_kernel", "resample_")  # GeM's and the warp's kernels
+# steps traced: the trace of a single step was seen to lack its first
+# kernels (the warp's) on the card, as the start of a torch.profiler trace
+# may, so the first step is the trace's warm-up
+TRACE_STEPS = 2
+PORT_CONFIGS = Path(__file__).resolve().parent / "ball_action_spotting_torch" / "configs"
+REHEARSAL_PATHS = {  # (CLI module's last name, experiment, challenge) → launch path
+    ("train", "sampling_weights_001", False): "rehearsal_stage1_train",
+    ("action_train", "action_sampling_weights_002", False): "rehearsal_stage2_train",
+    ("train", "ball_tuning_001", False): "rehearsal_stage3_train",
+    ("train", "ball_finetune_long_004", False): "rehearsal_stage4_train",
+    ("predict", "sampling_weights_001", False): "rehearsal_stage1_predict",
+    ("predict", "ball_tuning_001", False): "rehearsal_stage3_predict",
+    ("predict", "ball_finetune_long_004", False): "rehearsal_stage4_predict",
+    ("predict", "ball_finetune_long_004", True): "rehearsal_challenge_predict",
+}
+
+
+def wall_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Median host-clock ms of ``fn`` followed by a synchronize."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def store_games() -> list:
+    """The games of ``STORE_FOLDS`` as gray stores of ``STORE_FRAMES`` frames
+    a half, with labels and info sidecars, in the current workspace."""
+    games = [ball.fold2games[fold][0] for fold in STORE_FOLDS]
+    for i, game in enumerate(games):
+        write_recipe_game(ball.DOMAIN.soccernet_dir / game, ball.DOMAIN.label_file, STORE_EVENTS,
+                          seed=40 + 10 * i, frames=STORE_FRAMES)
+    return games
+
+
+def gather_readers(store: Path, card: str) -> dict:
+    """Batches of the flagship's clips (random centers, the first and last
+    frame among them, so indexes clamp at both ends) gathered from ``store``
+    into padded slots of a batch buffer, as the loader fills them, by the
+    native reader at each of ``GATHER_THREADS`` and by the numpy reader, in
+    turns after one read warmed the page cache: clips/s and GB/s of each,
+    and every native buffer bitwise the numpy one's."""
+    ap = flagship_config()["argus_params"]
+    gen = StackIndexesGenerator(ap["frame_stack_size"], ap["frame_stack_step"])
+    readers = {"numpy": GrayStore(store, native=False),
+               **{f"native_{t}": GrayStore(store, num_threads=t) for t in GATHER_THREADS}}
+    n, h, w = readers["numpy"].frame_count, readers["numpy"].height, readers["numpy"].width
+    readers["numpy"].read(0, n)  # page cache
+    top = (HEIGHT - h) // 2
+    rng = np.random.default_rng(9)
+    rows = {}
+    for batch in GATHER_BATCHES:
+        centers = np.concatenate([[0, n - 1], rng.integers(0, n, batch - 2)])
+        clips = np.stack([gen.make_stack_indexes(int(c)) for c in centers])
+        reference = np.zeros((batch, len(clips[0]), HEIGHT, WIDTH), np.uint8)
+        readers["numpy"].gather(clips, out=reference[:, :, top:top + h])
+        buf = np.empty_like(reference)
+        row = {"clips": batch, "clip_frames": len(clips[0]),
+               "clamped_low": int((clips < 0).sum()), "clamped_high": int((clips >= n).sum())}
+        for name, reader in readers.items():
+            buf.fill(0)
+            view = buf[:, :, top:top + h]
+            ms = wall_ms(lambda: reader.gather(clips, out=view), reps=GATHER_REPS)
+            if not np.array_equal(buf, reference):
+                fail(f"gather {name} at {batch} clips differs from the numpy reader")
+            row[name] = {"ms": ms, "clips_per_s": batch / ms * 1e3,
+                         "gb_per_s": clips.size * h * w / ms / 1e6}
+        if batch == GATHER_BATCHES[-1]:
+            rows["loader_pattern"] = gather_like_loader(store, clips, reference, buf, top)
+        del reference, buf
+        rows[batch] = row
+    for reader in readers.values():
+        reader.close()
+    log({"phase": "gather", "card": card, "store": store.name, "frame": [h, w],
+         "padded_to": [HEIGHT, WIDTH], "bitwise_equal": True, "batches": rows})
+    return rows
+
+
+def gather_like_loader(store: Path, clips: np.ndarray, reference: np.ndarray, buf: np.ndarray,
+                       top: int) -> dict:
+    """``clips`` gathered as the loader asks for them: one clip per call into
+    its padded slot, from ``num_decode_workers`` threads at once, each with a
+    reader of its own (the loader's per-thread sources), by the native
+    reader (which gathers a single clip on the calling thread) and by the
+    numpy reader, in turns: clips/s and GB/s of each, bitwise equal."""
+    workers = num_decode_workers(flagship_config())
+    h = reference.shape[2] - 2 * top
+    kinds = {"numpy": dict(native=False), "native": dict(native=True)}
+    readers = {name: [GrayStore(store, **kw) for _ in range(workers)]
+               for name, kw in kinds.items()}
+
+    def run(pool, name):
+        def worker(k):
+            for i in range(k, len(clips), workers):
+                readers[name][k].gather(clips[i:i + 1], out=buf[i:i + 1, :, top:top + h])
+        t0 = time.perf_counter()
+        list(pool.map(worker, range(workers)))
+        return (time.perf_counter() - t0) * 1e3
+
+    times = {name: [] for name in kinds}
+    with ThreadPoolExecutor(workers) as pool:
+        for name in kinds:  # warm-up, and each reader's output checked
+            buf.fill(0)
+            run(pool, name)
+            if not np.array_equal(buf, reference):
+                fail(f"gather {name} as the loader calls it differs from the numpy reader")
+        for _ in range(GATHER_REPS):
+            for name in kinds:
+                times[name].append(run(pool, name))
+    for group in readers.values():
+        for reader in group:
+            reader.close()
+    row = {"workers": workers, "clips": len(clips), "clips_per_call": 1}
+    for name, ms in times.items():
+        ms = statistics.median(ms)
+        row[name] = {"ms": ms, "clips_per_s": len(clips) / ms * 1e3,
+                     "gb_per_s": clips.size * h * reference.shape[3] / ms / 1e6}
+    return row
+
+
+def loader_share(dev, trainer, config: dict, games: list, workers: int) -> tuple[dict, tuple]:
+    """The loader's share of the fit loop: ``train_epoch`` over a loader of
+    ``LOADER_STEPS`` steps against as many steps on one batch already on the
+    card, each ``LOADER_REPS`` times in turns. The share is signed; it is
+    resolved only where it is larger than the spread of either kind's reps.
+    Returns the numbers and the batch on the card."""
+    config = dict(config, train_epoch_size=BATCH * LOADER_STEPS)
+    train_ds, _ = build_datasets(config, ball.DOMAIN, games[1:], games[:1], ball.game2fold)
+    loader = ClipLoader(train_ds, BATCH, num_workers=workers)
+    frames, targets = next(iter(loader.epoch(0)))
+    batch = tuple(torch.from_numpy(np.array(x)).to(dev) for x in (frames, targets))
+
+    def on_card():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LOADER_STEPS):
+            aux = trainer.train_step(trainer.state, *batch, 3)
+        float(aux["loss"])
+        return (time.perf_counter() - t0) * 1e3 / LOADER_STEPS
+
+    loaded, card = [], []
+    for rep in range(LOADER_REPS):
+        loaded.append(BATCH / trainer.train_epoch(loader, rep + 1)["train_samples_per_sec"] * 1e3)
+        card.append(on_card())
+    share = 1.0 - statistics.mean(card) / statistics.mean(loaded)
+    spread = max((max(x) - min(x)) / statistics.mean(x) for x in (loaded, card))
+    return {"loader_steps": LOADER_STEPS, "loader_reps": LOADER_REPS,
+            "ms_per_step_with_loading": loaded,
+            "ms_per_step_on_card": card, "loader_share": share, "spread": spread,
+            "resolved": abs(share) > spread}, batch
+
+
+def store_train(dev, games: list, launches: dict):
+    """The flagship trainer through ``train/pipeline.py``'s datasets over the
+    stores (native reader; validation through ``make_sequential_factory``,
+    which passes a store through unwrapped), then the loader's share of the
+    fit loop (``loader_share``)."""
+    config = flagship_config()
+    train_ds, val_ds = build_datasets(config, ball.DOMAIN, games[1:], games[:1], ball.game2fold)
+    source = val_ds.source_factory(val_ds.videos_data[0])
+    if type(source) is not GrayStoreSource or not source.store.native:
+        fail(f"validation read a store through {type(source).__name__}, expected the native "
+             "GrayStoreSource unwrapped")
+    source.close()
+    workers = num_decode_workers(config)
+    train_loader = ClipLoader(train_ds, BATCH, num_workers=workers)
+    val_loader = ClipLoader(val_ds, BATCH, num_workers=workers)
+    save_dir = ball.DOMAIN.experiments_dir / STORE_EXPERIMENT / "fold_0"
+    trainer = Trainer(config, list(ball.classes), save_dir, augment=AugmentConfig(),
+                      mixup=make_mixup_fn(config.get("mixup_params")), device=dev)
+    trainer.init_state()
+    epochs, train_epoch = [], trainer.train_epoch
+
+    def recording_epoch(loader, epoch):
+        epochs.append(train_epoch(loader, epoch))
+        return epochs[-1]
+
+    trainer.train_epoch = recording_epoch
+    best = counted(STORE_EXPERIMENT, launches, lambda: trainer.fit(train_loader, val_loader))
+    del trainer.train_epoch  # the method again
+    got = launches[STORE_EXPERIMENT]
+    steps = sum(config["num_epochs"]) * -(-config["train_epoch_size"] // BATCH)
+    losses = [e["train_loss"] for e in epochs] + [best.get("val_loss")]
+    if trainer.state.step != steps or not all(x is not None and math.isfinite(x)
+                                              for x in losses):
+        fail(f"training from the stores: {trainer.state.step} steps (expected {steps}), "
+             f"losses {losses}")
+    if not (got["warp_H"] == got["warp_V"] == steps and got["gem"] >= steps):
+        fail(f"training from the stores did not launch the warp per step and GeM: {got}")
+    fit_steps = trainer.state.step
+    share, batch = loader_share(dev, trainer, config, games, workers)
+    log({"phase": "store_train", "steps": fit_steps, "losses": losses,
+         "launches": got, "fit_samples_per_sec": [e["train_samples_per_sec"] for e in epochs],
+         "workers": workers, "val_average_precision": best.get("val_average_precision"),
+         **share})
+    return trainer, batch
+
+
+def store_predict(dev, game: str, fps_main: dict, launches: dict) -> None:
+    """The ball predict CLI from the store-trained checkpoint over one game
+    (TTA on): end-to-end fps against phase 1's device fps, and the same
+    predictions as ``ChunkedVideoPredictor`` over the frames as an array."""
+    argv = ["--experiment", STORE_EXPERIMENT, "--folds", "0", "--device", str(dev)]
+    t0 = time.perf_counter()
+    counted("store_predict", launches, lambda: ball_predict(argv))
+    seconds = time.perf_counter() - t0
+    got = launches["store_predict"]
+    if not (got["gem"] > 0 and got["dwconv3d"] > 0):
+        fail(f"predicting from a store did not launch GeM and dwconv3d: {got}")
+    ckpt = get_best_checkpoint_path(ball.DOMAIN.experiments_dir / STORE_EXPERIMENT / "fold_0")
+    predictor = ChunkedVideoPredictor(ckpt, device=dev, tta=True)
+    pred_dir = ball.DOMAIN.predictions_dir / STORE_EXPERIMENT / "cv" / "fold_0" / game
+    diffs, array_seconds = [], 0.0
+    for half in ball.DOMAIN.halves:
+        store = ball.DOMAIN.soccernet_dir / game / f"{half}_720p.mkv.gray"
+        frames = GrayStore(store, native=False).read(0, STORE_FRAMES)
+        idx, raw, secs = run_video(predictor, frames)
+        array_seconds += secs
+        cli_idx, cli_raw = load_raw_predictions(pred_dir / f"{half}_raw_predictions.npz")
+        if not np.array_equal(np.asarray(idx), cli_idx):
+            fail("the predict CLI's frame indexes differ from the array path's")
+        diffs.append(agree(f"store_predict_cli_vs_array_half{half}", cli_raw, raw,
+                           PRED_BF16_ATOL))
+    frames_total = len(ball.DOMAIN.halves) * STORE_FRAMES
+    log({"phase": "store_predict", "launches": got, "max_abs_diff": max(diffs),
+         "cli_seconds": seconds, "cli_end_to_end_fps": frames_total / seconds,
+         "array_end_to_end_fps": frames_total / array_seconds,
+         "phase1_device_fps_tta_on": fps_main["device_fps_tta_on"],
+         "phase1_end_to_end_fps_tta_on": fps_main["end_to_end_fps_tta_on"]})
+
+
+def smoothing(dev, card: str) -> None:
+    """``smooth_scores_batch`` on the device over a full half's two class
+    curves and over rows shorter than the kernel's radius, against scipy."""
+    sigma = ball.DOMAIN.postprocess.gauss_sigma
+    rng = np.random.default_rng(12)
+    rows = {}
+    for name, length in (("full_half", SMOOTH_FRAMES), ("short_row", SMOOTH_SHORT)):
+        scores = rng.random((2, length)).astype(np.float32)
+        got = smooth_scores_batch(scores, sigma, device=dev)
+        t0 = time.perf_counter()
+        ref = gaussian_filter1d(scores.astype(np.float64), sigma, axis=-1)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        diff = float(np.abs(got - ref).max())
+        rows[name] = {"shape": list(scores.shape), "max_abs_diff": diff,
+                      "ms": wall_ms(lambda: smooth_scores_batch(scores, sigma, device=dev), 5),
+                      "scipy_host_ms": host_ms}
+        if not (got.shape == scores.shape and diff <= SMOOTH_ATOL):
+            fail(f"smoothing {name}: max|diff| {diff} > {SMOOTH_ATOL} against scipy")
+    log({"phase": "smoothing", "card": card, "sigma": sigma, "atol": SMOOTH_ATOL, **rows})
+
+
+def traced_step(trainer, batch, log_dir: Path) -> None:
+    """``TRACE_STEPS`` train steps under ``device_trace``: the trace file
+    must exist and name the GeM and warp kernels (the log counts the
+    trace's events that name each)."""
+    with device_trace(log_dir) as path:
+        for _ in range(TRACE_STEPS):
+            trainer.train_step(trainer.state, *batch, 4)
+    events = json.loads(path.read_text())["traceEvents"] if path.exists() else []
+    found = {name: sum(name in str(event.get("name", "")) for event in events)
+             for name in TRACE_NAMES}
+    log({"check": "device_trace", "file": path.name, "steps": TRACE_STEPS,
+         "events": len(events), "events_naming": found})
+    if not all(found.values()):
+        fail(f"the device trace {path} does not name every kernel: {found}")
+
+
+def stage_config(name: str, domain) -> dict:
+    """A shipped stage config cut in depth as phase 5 cuts it."""
+    return recipe_config(load_experiment_config(name, domain,
+                                                configs_dir=PORT_CONFIGS / domain.name))
+
+
+def rehearsal_workspace(root: Path, sources: list) -> None:
+    """The rehearsal's workspace: every fold's and challenge game of the ball
+    domain and an action game, their halves hard links to the stores of the
+    game directories ``sources`` (in turn), the stage configs and the action
+    splits."""
+    targets = [(ball.DOMAIN.soccernet_dir / g, ball.DOMAIN.label_file, None)
+               for g in ball.fold_games + ball.challenge_games]
+    targets.append((action.DOMAIN.soccernet_dir / "synthetic/action_game",
+                    action.DOMAIN.label_file, ACTION_EVENTS))
+    for i, (game_dir, label_file, events) in enumerate(targets):
+        source = sources[i % len(sources)]
+        game_dir.mkdir(parents=True)
+        for half in ball.DOMAIN.halves:
+            for suffix in (".gray", ".info.json"):
+                os.link(source / f"{half}_720p.mkv{suffix}", game_dir / f"{half}_720p.mkv{suffix}")
+        if events is None:
+            shutil.copy(source / ball.DOMAIN.label_file, game_dir / label_file)
+        else:
+            annotations = [{"gameTime": f"{half} - 00:{f // 25:02d}", "label": label,
+                            "position": str(f * 40), "visibility": visibility}
+                           for half, half_events in events.items()
+                           for f, (label, visibility) in half_events.items()]
+            (game_dir / label_file).write_text(json.dumps({"annotations": annotations}))
+    for domain, names in ((ball.DOMAIN, ("sampling_weights_001", "ball_tuning_001",
+                                         "ball_finetune_long_004")),
+                          (action.DOMAIN, ("action_sampling_weights_002",))):
+        (root / "configs" / domain.name).mkdir(parents=True)
+        for name in names:
+            (root / "configs" / domain.name / f"{name}.py").write_text(
+                f"config = {stage_config(name, domain)!r}\n")
+    (root / "splits").mkdir()
+    for split in ("train", "val"):
+        (root / "splits" / f"{split}.json").write_text(json.dumps(["synthetic/action_game"]))
+
+
+def rehearsal_on_card(dev, root: Path, sources: list, launches: dict) -> None:
+    """``cli/rehearsal.py`` in process on the card over phase 9's games,
+    each stage cut in depth as phase 5 cuts it: the launches of every step,
+    stage 4's losses (its first run on the card) and the cv ensemble's
+    mAP. Stage 1 trains and predicts every fold, since stage 3 reads the
+    out-of-fold predictions of each game it trains on."""
+    steps = []
+    args = rehearsal.parse_arguments(["--folds", "all", "--stage_folds", "0", "--in_process",
+                                      "--device", str(dev)])
+    with environ(BAS_TPU_WORKDIR=str(root), BAS_TPU_CONFIGS_DIR=str(root / "configs"),
+                 BAS_TPU_ACTION_SPLITS=str(root / "splits")):
+        rehearsal_workspace(root, sources)
+        # the steps of ``rehearsal.main`` with ``--in_process``, each counted
+        for module, argv in rehearsal.steps(args):
+            t0 = time.perf_counter()
+            counted("step", {}, lambda: rehearsal.run_in_process(module, argv))
+            key = (module.rsplit(".", 1)[-1], argv[1], "--challenge" in argv)
+            steps.append({"step": " ".join([key[0], *argv]), "launches": path_launches(),
+                          "seconds": time.perf_counter() - t0})
+            if key in REHEARSAL_PATHS:
+                launches[REHEARSAL_PATHS[key]] = path_launches()
+        with open(ball.DOMAIN.experiments_dir / "ball_finetune_long_004" / "fold_0"
+                  / "log.csv") as f:
+            stage4 = list(csv.DictReader(f))
+        ens = ball.DOMAIN.predictions_dir / "ball_tuning_001,ball_finetune_long_004" / "cv" \
+            / "fold_0" / "evaluate_results.json"
+        ens_map = check_map("the rehearsal's cv ensemble", json.loads(ens.read_text()))
+    losses = [float(row[k]) for row in stage4 for k in ("train_loss", "val_loss") if row.get(k)]
+    log({"phase": "rehearsal", "steps": steps, "stage4_losses": losses,
+         "cv_ensemble_a_mAP": ens_map})
+    if len(losses) < 3 or not all(math.isfinite(x) for x in losses):
+        fail(f"stage 4's losses are not all finite: {losses}")
+    for path in REHEARSAL_PATHS.values():
+        got = launches.get(path)
+        if got is None:
+            fail(f"the rehearsal ran no step of {path}")
+        kernels = ("warp_H", "warp_V", "gem") if path.endswith("_train") else ("gem", "dwconv3d")
+        if not all(got[k] > 0 for k in kernels):
+            fail(f"{path} did not launch {kernels}: {got}")
+
+
+def host_data_path(dev, card: str, fps_main: dict, work: Path) -> dict:
+    """Phase 9: full-size gray stores, the native gather against numpy,
+    training and predicting from the stores, on-device smoothing, a device
+    trace and the rehearsal CLI, each stage timed by ``StageTimer``.
+    Returns the launches of each path."""
+    launches: dict = {}
+    timer = StageTimer()
+    with environ(BAS_TPU_WORKDIR=str(work / "stores")):
+        with timer.stage("write_stores"):
+            games = store_games()
+        stores = sorted(ball.DOMAIN.soccernet_dir.rglob("*.gray"))
+        log({"phase": "store_write", "halves": len(stores), "frames_per_half": STORE_FRAMES,
+             "frame": [VIDEO_HEIGHT, WIDTH], "store_gb": sum(p.stat().st_size for p in stores) / 1e9,
+             "seconds": timer.totals["write_stores"]})
+        with timer.stage("gather"):
+            gather_readers(stores[0], card)
+        with timer.stage("store_train"):
+            trainer, batch = store_train(dev, games, launches)
+        with timer.stage("device_trace"):
+            traced_step(trainer, batch, work / "trace")
+        del trainer, batch
+        torch.cuda.empty_cache()
+        with timer.stage("store_predict"):
+            store_predict(dev, games[0], fps_main, launches)
+        with timer.stage("smoothing"):
+            smoothing(dev, card)
+        sources = [ball.DOMAIN.soccernet_dir / game for game in games]
+    torch.cuda.empty_cache()
+    with timer.stage("rehearsal"):
+        rehearsal_on_card(dev, work / "rehearsal", sources, launches)
+    log({"phase": "host_data_stages", "stages": timer.report().splitlines()})
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -2673,7 +3135,7 @@ def main() -> None:
     log({"phase": "kernel_checks_done", "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    launches, weights, video, raw_main = flagship(dev, card)
+    launches, weights, video, raw_main, fps = flagship(dev, card)
     log({"phase": "inference_done", "seconds": time.perf_counter() - t0})
     with tempfile.TemporaryDirectory() as work:
         work = Path(work)
@@ -2695,6 +3157,11 @@ def main() -> None:
         family_launches, family_rows = weights_and_family(dev, card, weights, video, raw_main,
                                                           Path(work))
     rows.update(family_rows)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        store_launches = host_data_path(dev, card, fps, Path(work))
+    log({"phase": "host_data_path_done", "seconds": time.perf_counter() - t0})
 
     # one row per kernel and main path; the warp's H and V passes, two
     # launches of one kernel at different shapes and access patterns, each
@@ -2712,12 +3179,18 @@ def main() -> None:
     inference_paths = {"inference": launches, "eval_predict": recipe_launches["eval_predict"],
                        "action_predict": recipe_launches["action_predict"], **serving_paths,
                        **new_inference_paths, "pth_predict": family_launches["pth_predict"],
-                       "s2d_predict": family_launches["s2d_predict"]}
+                       "s2d_predict": family_launches["s2d_predict"],
+                       **{path: store_launches[path] for path in
+                          ("store_predict", "rehearsal_stage1_predict", "rehearsal_stage3_predict",
+                           "rehearsal_stage4_predict", "rehearsal_challenge_predict")}}
     training_paths = {"train": train_launches, "action_train": recipe_launches["action_train"],
                       "stage3_train": recipe_launches["stage3_train"],
                       "dp_train": new_launches["dp_train"],
                       "stage1_pretrained": family_launches["stage1_pretrained"],
-                      "stage2_pretrained": family_launches["stage2_pretrained"]}
+                      "stage2_pretrained": family_launches["stage2_pretrained"],
+                      **{path: store_launches[path] for path in
+                         ("store_train", "rehearsal_stage1_train", "rehearsal_stage2_train",
+                          "rehearsal_stage3_train", "rehearsal_stage4_train")}}
     sources = {
         "gem_pool_inference": ("gem", "ball_action_spotting_torch/csrc/gem.cu",
                                "ball_action_spotting_tpu/ops/pallas_gem.py:64", inference_paths),

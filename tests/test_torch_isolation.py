@@ -48,6 +48,18 @@ for name in names:
 import chip_smoke
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not loaded, loaded
+
+# the gray store reads through the port's own library, never native/'s
+import pathlib, tempfile
+import numpy as np
+from ball_action_spotting_torch.data.gray_store import GrayStore, write_gray_store
+with tempfile.TemporaryDirectory() as d:
+    path = pathlib.Path(d) / "v.gray"
+    write_gray_store(path, [np.zeros((2, 3), np.uint8)], 2, 3, 1)
+    GrayStore(path).read(0, 1)
+maps = open("/proc/self/maps").read()
+assert "/build/torch_kernels/libgray_store-" in maps
+assert "/native/libgray_store" not in maps
 print(" ".join(names))
 print(len(names))
 """
@@ -55,7 +67,9 @@ print(len(names))
 
 NEW_MODULES = ("predict.fused", "predict.export", "predict.host_loop", "parallel.mesh",
                "parallel.multihost", "cli.export_model", "models.torch_import",
-               "models.pretrained", "models.multichan_stacker", "models.classifier2d")
+               "models.pretrained", "models.multichan_stacker", "models.classifier2d",
+               "native", "data.gray_store", "utils.profiling", "cli.transcode",
+               "cli.verify_data", "cli.rehearsal", "cli.visualize")
 
 
 def test_port_imports_no_jax():
