@@ -173,4 +173,9 @@ class MultiDimStacker(nn.Module):
         return self.classifier(self.dropout(x.reshape(b, t * self.num_3d_stack_proj)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.forward_head(self.forward_3d(self.forward_2d(x)))
+        feats = self.forward_2d(x)
+        # a pipeline-placed model (parallel/pipeline.py::place_stages) holds
+        # forward_3d's modules on another device than forward_2d's; the
+        # logits come back to the input's device, beside its targets
+        feats = feats.to(self.conv3d_projection_bn.bias.device)
+        return self.forward_head(self.forward_3d(feats)).to(x.device)

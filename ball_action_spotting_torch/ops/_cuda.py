@@ -47,6 +47,7 @@ class CudaKernel(NativeLibrary):
         self.signature = signature
         self.launches = 0
         self.launches_by: dict[str, int] = {}
+        self.launches_on: dict[str, int] = {}
         self._fn = None
 
     def compile_command(self, output: Path) -> list[str]:
@@ -63,19 +64,26 @@ class CudaKernel(NativeLibrary):
 
     def launch(self, *args, tag: str | None = None) -> None:
         """Call the entry point on the current stream's work; raise on a
-        nonzero ``cudaGetLastError``; count the launch, and under ``tag``
-        in ``launches_by`` where the wrapper names one (a kernel with
-        several modes, such as the warp's H and V passes)."""
+        nonzero ``cudaGetLastError``; count the launch, under ``tag`` in
+        ``launches_by`` where the wrapper names one (a kernel with several
+        modes, such as the warp's H and V passes), and under the current
+        device (``cuda:i``, which the wrapper set to its input's) in
+        ``launches_on``."""
+        import torch
+
         err = self.function()(*args)
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: error {err}")
         self.launches += 1
         if tag is not None:
             self.launches_by[tag] = self.launches_by.get(tag, 0) + 1
+        device = f"cuda:{torch.cuda.current_device()}"
+        self.launches_on[device] = self.launches_on.get(device, 0) + 1
 
     def reset_counts(self) -> None:
         self.launches = 0
         self.launches_by = {}
+        self.launches_on = {}
 
 
 def stream_handle(tensor) -> int:

@@ -12,13 +12,18 @@ over ``torch.distributed`` instead (``parallel/multihost.py``); there the
 global-batch BatchNorm statistics that GSPMD gives JAX come from an
 all-reduce (``models/effnetv2.py::BatchNormAct``).
 
+The model axis holds the two stages of a pipeline-parallel train step
+(``parallel/pipeline.py``, one process) and the slices of a tensor-parallel
+training state (``parallel/sharding_rules.py``, one process per grid row);
+``model_devices(row)`` lists a row's. ``batch_slices`` splits a batch over
+the data axis, the port's ``batch_sharding``.
+
 A device may repeat in the grid (``make_mesh(2, 1, ["cuda:0", "cuda:0"])``),
 so that one card, or the CPU, runs a 2×1 or 1×2 grid.
 
-Not ported: ``batch_sharding``, ``replicated``, ``shard_batch`` and
-``replicate_state``, which place JAX arrays (the port's callers move
-tensors with ``.to(device)``), and ``spatial_frames_sharding``, which waits
-for spatial partitioning.
+Not ported: ``replicated``, ``shard_batch`` and ``replicate_state``, which
+place JAX arrays (the port's callers move tensors with ``.to(device)``),
+and ``spatial_frames_sharding``, which waits for spatial partitioning.
 """
 
 from __future__ import annotations
@@ -47,9 +52,19 @@ class DeviceMesh:
         """The devices along the data axis (model index 0)."""
         return [row[0] for row in self.grid]
 
-    def model_devices(self) -> list[torch.device]:
-        """The devices along the model axis (data index 0)."""
-        return list(self.grid[0])
+    def model_devices(self, row: int = 0) -> list[torch.device]:
+        """The devices along the model axis of data row ``row``."""
+        return list(self.grid[row])
+
+    def batch_slices(self, n: int) -> list[slice]:
+        """Equal contiguous shares of a batch of ``n`` rows, one per data
+        row, in order; ``n`` must divide evenly."""
+        n_data = len(self.grid)
+        if n % n_data:
+            raise ValueError(f"a batch of {n} rows does not divide over a data axis of "
+                             f"{n_data}")
+        share = n // n_data
+        return [slice(i * share, (i + 1) * share) for i in range(n_data)]
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,

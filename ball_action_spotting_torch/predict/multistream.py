@@ -1,5 +1,5 @@
 """Multi-stream serving engines: many live videos per card (port of the JAX
-package's ``predict/multistream.py``, on one device).
+package's ``predict/multistream.py``).
 
 ``MultiStreamPredictor`` runs K concurrent streams with the per-stream
 semantics of ``StreamingPredictor`` (frame dict, stack-feature cache,
@@ -15,7 +15,15 @@ are discarded. Nothing compiles here, but the first call at a batch shape
 picks cuDNN's algorithms and grows the allocator, so a bounded set of
 shapes is still what ``warmup`` pays for before serving.
 
-``DeviceStateMultiStreamPredictor`` keeps each stream's state on the
+``MultiStreamPredictor(mesh=...)`` spreads each tick over the data axis of
+a device grid (``parallel/mesh.py``): the weights are copied to every
+data-axis device, and each call's bucket, floored at the axis size and
+rounded up to a multiple of it, is split into equal shares, one per
+device, each launched on its device's current stream; a window's stack
+features are copied to the device that predicts it, and the predictions are
+gathered on the first device.
+
+``DeviceStateMultiStreamPredictor`` keeps each stream's state on one
 device instead, in two preallocated rings updated in place, so that a
 tick is one ``_tick`` call (see its docstring).
 
@@ -41,34 +49,38 @@ import torch
 from ball_action_spotting_torch.predict.streaming import PredictorBase, _batched
 
 
-def _loop_seconds(device: torch.device, fn: Callable, length: int) -> float:
+def _loop_seconds(devices: Sequence[torch.device], fn: Callable, length: int) -> float:
     """Seconds for ``length`` calls of ``fn``: CUDA events around them on
-    the card, the host clock on the CPU."""
-    if device.type == "cuda":
-        stream = torch.cuda.current_stream(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
+    each card's stream (the longest span of the cards), the host clock on
+    the CPU."""
+    if devices[0].type == "cuda":
+        devices = list(dict.fromkeys(devices))
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in devices]
+        for dev, (start, _) in zip(devices, events):
+            start.record(torch.cuda.current_stream(dev))
         for _ in range(length):
             fn()
-        end.record(stream)
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3
+        for dev, (_, end) in zip(devices, events):
+            end.record(torch.cuda.current_stream(dev))
+        for _, end in events:
+            end.synchronize()
+        return max(start.elapsed_time(end) for start, end in events) / 1e3
     t0 = time.perf_counter()
     for _ in range(length):
         fn()
     return time.perf_counter() - t0
 
 
-def _differenced_ms(device: torch.device, tick: Callable, scan_lengths: tuple[int, int],
-                    reps: int) -> tuple[float, dict]:
+def _differenced_ms(devices: Sequence[torch.device], tick: Callable,
+                    scan_lengths: tuple[int, int], reps: int) -> tuple[float, dict]:
     """(ms per tick, best seconds by length): ``tick`` run L0 and L1 times,
     best of ``reps`` after one warm-up run per length."""
     times = {}
     with torch.inference_mode():
         for length in scan_lengths:
-            _loop_seconds(device, tick, length)
-            times[length] = min(_loop_seconds(device, tick, length) for _ in range(reps))
+            _loop_seconds(devices, tick, length)
+            times[length] = min(_loop_seconds(devices, tick, length) for _ in range(reps))
     l0, l1 = scan_lengths
     return (times[l1] - times[l0]) / (l1 - l0) * 1e3, times
 
@@ -78,20 +90,23 @@ def device_tick_ms(predictor: "MultiStreamPredictor", bucket: int,
     """Steady-state tick latency of the host-state engine at a padded batch
     of ``bucket`` streams: in the steady state (staggered admission) every
     stream brings one new stack and one ready window per tick, so a tick is
-    one ``fwd2d`` and one ``_fwd3d_rows`` at ``bucket`` rows. The window
-    rows are the new features repeated, in place of the host's row gather.
+    one ``fwd2d`` and one ``_fwd3d_rows`` at ``bucket`` rows (over a grid,
+    each device's share of them). The window rows are the new features
+    repeated, in place of the host's row gather.
 
     Returns ``(ms_per_tick, best_seconds_by_length)``."""
     pw, ph = predictor.image_size
     rng = np.random.default_rng(0)
-    x = predictor.upload(rng.integers(0, 255, (bucket, predictor.model_stack_size, ph, pw),
-                                      dtype=np.uint8))
+    x = rng.integers(0, 255, (bucket, predictor.model_stack_size, ph, pw), dtype=np.uint8)
+    shares = [(model, torch.from_numpy(x[part]).to(dev))
+              for dev, model, part in predictor._share_slices(bucket)]
 
     def tick():
-        feats = predictor.fwd2d(x)  # (bucket, tta, h, w, C)
-        predictor._fwd3d_rows(torch.cat([feats] * predictor.num_stacks), bucket)
+        for model, xs in shares:
+            feats = predictor.fwd2d(xs, model)  # (share, tta, h, w, C)
+            predictor._fwd3d_rows(torch.cat([feats] * predictor.num_stacks), len(xs), model)
 
-    return _differenced_ms(predictor.device, tick, scan_lengths, reps)
+    return _differenced_ms([dev for dev, _ in predictor.shares], tick, scan_lengths, reps)
 
 
 def device_state_tick_ms(predictor: "DeviceStateMultiStreamPredictor", bucket: int,
@@ -120,7 +135,7 @@ def device_state_tick_ms(predictor: "DeviceStateMultiStreamPredictor", bucket: i
         predictor._tick(bucket, frames_per_slot, False, frames_ring, feats_ring, active, new,
                         phase)
 
-    return _differenced_ms(predictor.device, tick, scan_lengths, reps)
+    return _differenced_ms([predictor.device], tick, scan_lengths, reps)
 
 
 def _bucket(n: int) -> int:
@@ -147,10 +162,19 @@ class MultiStreamPredictor(PredictorBase):
     ``(stream_id, prediction | None, predict_index)`` in input order; a
     prediction is a (classes,) tensor on the device, not synchronised.
     Results match a dedicated ``StreamingPredictor`` per stream (same
-    weights, same math; only the batching differs)."""
+    weights, same math; only the batching differs). ``mesh`` spreads each
+    tick over the grid's data axis (module docstring); the engine's
+    ``device`` is then the axis's first."""
 
-    def __init__(self, *args, bucket_granularity: int = 8, **kwargs):
+    _min_bucket = 1  # the data axis's size: every padded batch is a multiple
+
+    def __init__(self, *args, mesh=None, bucket_granularity: int = 8, **kwargs):
+        if mesh is not None:
+            kwargs["device"] = mesh.data_devices()[0]
         super().__init__(*args, **kwargs)
+        devices = mesh.data_devices() if mesh is not None else [self.device]
+        self.shares = self.place(self.model, devices)  # [(device, model)]
+        self._min_bucket = len(devices)
         self._streams: dict = {}
         self._predict_offset = self.indexes_generator.make_stack_indexes(0)[-1]
         # above 16 rows, pad to multiples of this instead of the next power
@@ -165,7 +189,10 @@ class MultiStreamPredictor(PredictorBase):
     def _bucket_shape(self, n: int) -> int:
         """Padded batch size for ``n`` rows: the next power of two up to 8,
         one intermediate step (multiples of ``granularity / 2``, i.e. 12)
-        between 8 and 16, then multiples of ``bucket_granularity``."""
+        between 8 and 16, then multiples of ``bucket_granularity``; floored
+        at the grid's data-axis size and rounded up to a multiple of it, so
+        that it splits into equal shares (a 6-device axis takes n = 7 to 12,
+        not 8)."""
         b = _bucket(n)
         g = self.bucket_granularity
         if g and b > 16:
@@ -173,20 +200,48 @@ class MultiStreamPredictor(PredictorBase):
         elif g and b == 16:
             half = max(4, g // 2)
             b = -(-n // half) * half
-        return b
+        b = max(b, self._min_bucket)
+        return -(-b // self._min_bucket) * self._min_bucket
+
+    def _share_slices(self, n: int) -> list:
+        """[(device, model, rows)]: ``n`` padded rows in equal shares, one
+        per data-axis device."""
+        per = n // len(self.shares)
+        return [(dev, model, slice(d * per, (d + 1) * per))
+                for d, (dev, model) in enumerate(self.shares)]
+
+    def _encode_stacks(self, batch: np.ndarray) -> list:
+        """(nb, stack, H, W) padded u8 stacks → nb (tta, h, w, C) feature
+        rows, each on the device of its share."""
+        rows = []
+        for dev, model, part in self._share_slices(len(batch)):
+            feats = self.fwd2d(torch.from_numpy(batch[part]).to(dev), model)
+            rows.extend(self._split_rows(feats, part.stop - part.start))
+        return rows
+
+    def _predict_windows(self, rows: list, mb: int) -> torch.Tensor:
+        """``mb`` windows' feature rows (``num_stacks`` each, in window
+        order, on any devices) → (mb, classes) on the first device."""
+        s = self.num_stacks
+        preds = []
+        for dev, model, part in self._share_slices(mb):
+            share = rows[part.start * s:part.stop * s]
+            stacked = torch.stack([r.to(dev, non_blocking=True) for r in share])
+            preds.append(self._fwd3d_rows(stacked, part.stop - part.start, model))
+        return torch.cat([p.to(self.device, non_blocking=True) for p in preds])
 
     def _split_rows(self, array: torch.Tensor, n: int) -> tuple:
         """The first ``n`` rows of ``array`` as views."""
         self._shapes.add(("split", n))
         return array[:n].unbind(0)
 
-    def _fwd3d_rows(self, stacked: torch.Tensor, mb: int) -> torch.Tensor:
+    def _fwd3d_rows(self, stacked: torch.Tensor, mb: int, model=None) -> torch.Tensor:
         """3D + head over window rows stacked as (mb·S, tta, h, w, C) →
         TTA-averaged (mb, classes)."""
         self._shapes.add(("fwd3d_rows", mb))
         s, t = self.num_stacks, self.num_tta
         w = stacked.reshape((mb, s, t) + stacked.shape[2:]).transpose(1, 2)  # (mb, tta, S, ...)
-        preds = self.fwd3d_head(w.reshape((mb * t,) + w.shape[2:]))
+        preds = self.fwd3d_head(w.reshape((mb * t,) + w.shape[2:]), model)
         return preds.reshape(mb, t, -1).mean(dim=1)
 
     def warmup(self, max_streams: int, frames_per_tick: int = 1,
@@ -204,11 +259,9 @@ class MultiStreamPredictor(PredictorBase):
         pw, ph = self.image_size
         with torch.inference_mode():
             for b in targets:
-                x = torch.zeros((b, self.model_stack_size, ph, pw), dtype=torch.uint8,
-                                device=self.device)
-                feats = self.fwd2d(x)
-                self._split_rows(feats, b)
-                preds = self._fwd3d_rows(torch.cat([feats] * self.num_stacks), b)
+                rows = self._encode_stacks(np.zeros((b, self.model_stack_size, ph, pw),
+                                                    np.uint8))
+                preds = self._predict_windows(rows * self.num_stacks, b)
                 self._split_rows(preds, b)[0].cpu()  # wait for the device
         return targets
 
@@ -268,7 +321,7 @@ class MultiStreamPredictor(PredictorBase):
             nb = self._bucket_shape(n)
             if nb != n:  # pad with repeats to the bucket
                 batch = np.concatenate([batch, np.repeat(batch[-1:], nb - n, axis=0)])
-            rows = self._split_rows(self.fwd2d(self.upload(batch)), nb)
+            rows = self._encode_stacks(batch)
             for j, (state, stack, _) in enumerate(missing):
                 state.features[stack] = rows[j]  # (tta, h, w, C)
 
@@ -281,7 +334,7 @@ class MultiStreamPredictor(PredictorBase):
             mb = self._bucket_shape(m)
             if mb != m:
                 rows_list.extend(rows_list[-self.num_stacks:] * (mb - m))
-            preds = self._fwd3d_rows(torch.stack(rows_list), mb)  # (mb, classes)
+            preds = self._predict_windows(rows_list, mb)  # (mb, classes)
             pred_rows = self._split_rows(preds, mb)
             for j, plan in enumerate(ready):
                 results[id(plan)] = pred_rows[j]
@@ -317,6 +370,11 @@ class DeviceStateMultiStreamPredictor(MultiStreamPredictor):
     the host-state engine's first prediction appears."""
 
     def __init__(self, *args, slot_capacity: int = 8, **kwargs):
+        if kwargs.get("mesh") is not None:
+            raise ValueError(
+                "DeviceStateMultiStreamPredictor is single-chip (capacity is a per-chip "
+                "number); use MultiStreamPredictor(mesh=...) to spread host-state ticks "
+                "over a mesh")
         super().__init__(*args, **kwargs)
         self._pw, self._ph = self.image_size
         m, step = self.model_stack_size, self.frame_stack_step

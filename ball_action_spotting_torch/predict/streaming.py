@@ -155,25 +155,38 @@ class PredictorBase:
     def pad_frame(self, frame: np.ndarray) -> np.ndarray:
         return pad_frame(frame, self.image_size)
 
-    def fwd2d(self, frames_u8: torch.Tensor) -> torch.Tensor:
+    def fwd2d(self, frames_u8: torch.Tensor, model=None) -> torch.Tensor:
         """(B, stack, H, W) padded u8 stacks → (B, tta, h, w, C) features:
-        float32, /255, hflip TTA stacked tta-major, then ``forward_2d``."""
+        float32, /255, hflip TTA stacked tta-major, then ``forward_2d`` of
+        ``model`` (this engine's, or its copy on another device)."""
         x = frames_u8.float() / 255.0
         if self.tta:
             x = torch.cat([x, x.flip(-1)], dim=0)
-        feats = self.model.forward_2d(x)[:, 0]  # (tta·B, h, w, C)
+        feats = (model or self.model).forward_2d(x)[:, 0]  # (tta·B, h, w, C)
         feats = feats.reshape((self.num_tta, frames_u8.shape[0]) + feats.shape[1:])
         return feats.transpose(0, 1)
 
-    def fwd3d_head(self, feats: torch.Tensor) -> torch.Tensor:
+    def fwd3d_head(self, feats: torch.Tensor, model=None) -> torch.Tensor:
         """(B, num_stacks, h, w, C) features → (B, classes) float32
         sigmoids: ``forward_3d``, then ``forward_head`` (GeM over the
         concatenated stack map)."""
-        logits = self.model.forward_head(self.model.forward_3d(feats))
+        model = model or self.model
+        logits = model.forward_head(model.forward_3d(feats))
         return torch.sigmoid(logits.float())
 
     def upload(self, frames_u8: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(frames_u8).to(self.device)
+
+    @staticmethod
+    def place(model, devices) -> list:
+        """[(device, ``model`` on it)] for each of ``devices``: one copy of
+        the model per distinct device."""
+        copies = {}
+        for dev in devices:
+            if dev not in copies:
+                copies[dev] = model if next(model.parameters()).device == dev \
+                    else copy.deepcopy(model).to(dev)
+        return [(dev, copies[dev]) for dev in devices]
 
 
 class StreamingPredictor(PredictorBase):
@@ -265,17 +278,6 @@ class ChunkedVideoPredictor(PredictorBase):
         self._frame_tail = (m - 1) * step  # frames only the new stacks need
         self._feat_tail = (self.num_stacks - 1) * self.stack_span  # carried stacks
         self.shares = self.place(self.model, self.mesh.data_devices())
-
-    @staticmethod
-    def place(model, devices) -> list:
-        """[(device, ``model`` on it)] for each of ``devices``: one copy of
-        the model per distinct device."""
-        copies = {}
-        for dev in devices:
-            if dev not in copies:
-                copies[dev] = model if next(model.parameters()).device == dev \
-                    else copy.deepcopy(model).to(dev)
-        return [(dev, copies[dev]) for dev in devices]
 
     # --- device programs -------------------------------------------------
 

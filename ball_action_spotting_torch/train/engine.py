@@ -1,5 +1,5 @@
 """Training engine: the fit loop (port of the JAX package's
-``train/engine.py`` without its tensor- and pipeline-parallel code).
+``train/engine.py``).
 
 Builds the model, loss, optimizer and schedule from a reference-style
 config dict, runs the warmup and train stages as one fused rate schedule,
@@ -18,12 +18,21 @@ number of steps, and unequal counts raise on every process before the first
 step; validation outputs are gathered and the padding rows dropped from the
 epoch metrics; only the primary process writes ``log.txt``, ``log.csv``,
 checkpoints and the resume point.
+
+``config["pipeline_parallel"]`` (an int, or ``{"n_micro": N}``) trains with
+the 2-stage GPipe step over ``mesh``'s model axis in one process
+(``parallel/pipeline.py``), the model's stages placed on row 0's two
+model-axis devices; it replaces ``iter_size``, runs in one process only, and
+needs a ``batch_size`` that lcm(grid devices, data axis · n_micro)
+divides, as JAX's ``Trainer`` refuses. Every batch is padded to that
+multiple by cycling its rows.
 """
 
 from __future__ import annotations
 
 import csv
 import logging
+import math
 import time
 from pathlib import Path
 from typing import Optional
@@ -40,7 +49,8 @@ from ball_action_spotting_torch.ops.augment import AugmentConfig
 from ball_action_spotting_torch.ops.losses import build_loss
 from ball_action_spotting_torch.ops.mixup import Mixup
 from ball_action_spotting_torch.parallel import multihost
-from ball_action_spotting_torch.parallel.mesh import pad_batch_to_devices
+from ball_action_spotting_torch.parallel.mesh import DeviceMesh, make_mesh, pad_batch_to_devices
+from ball_action_spotting_torch.parallel.pipeline import make_pp_train_step, place_stages
 from ball_action_spotting_torch.train import checkpoint as ckpt_lib
 from ball_action_spotting_torch.train.metrics import Accuracy, AveragePrecision
 from ball_action_spotting_torch.train.optim import build_optimizer
@@ -102,6 +112,10 @@ class Trainer:
     batches come from ``ClipLoader``-style iterables of (uint8 frames
     (B, T, H, W), float32 targets (B, C)). ``device`` defaults to CUDA and
     must exist; ``compute_dtype`` is the model's (bfloat16 on the card).
+    ``mesh`` (``parallel/mesh.py``) is the grid of a pipeline-parallel
+    config, whose row 0's first device then takes the place of ``device``;
+    a grid of more than one device trains only with ``pipeline_parallel``
+    (data parallelism is one process per device, ``torchrun``).
     """
 
     def __init__(
@@ -116,18 +130,18 @@ class Trainer:
         seed: int = 0,
         compute_dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda",
+        mesh: Optional[DeviceMesh] = None,
     ):
-        if config.get("pipeline_parallel"):
-            # JAX's Trainer runs this key as a 2-stage GPipe of n_micro
-            # microbatches (parallel/pipeline.py); training the full batch in
-            # one step instead would silently change BN statistics and mixup
-            # pairs. Slice 12 ports it, with JAX's three refusals: together
-            # with iter_size > 1, under several processes, and a batch that
-            # lcm(devices, data axis * n_micro) does not divide.
-            raise NotImplementedError(
-                "pipeline_parallel (the 2-stage GPipe over the mesh's model axis) is not "
-                "ported yet; it is queued for slice 12 of the port (ROADMAP.md, A)")
-        self.device = resolve_device(device)
+        pp = config.get("pipeline_parallel")
+        self._pp_n_micro = (int(pp["n_micro"]) if isinstance(pp, dict)
+                            else int(pp) if pp else None)
+        if mesh is None:
+            mesh = make_mesh(1, 1, [resolve_device(device)])
+        elif not self._pp_n_micro and mesh.shape != {"data": 1, "model": 1}:
+            raise ValueError(f"a {mesh.shape} grid trains only with pipeline_parallel; "
+                             "data parallelism runs one process per device (torchrun)")
+        self.mesh = mesh
+        self.device = resolve_device(mesh.grid[0][0])
         self.config = config
         self.classes = classes
         self.save_dir = Path(save_dir)
@@ -162,9 +176,32 @@ class Trainer:
         )
         self.optimizer_spec = (opt_name, {k: v for k, v in opt_kwargs.items() if k != "lr"})
         self.ema_decay = config.get("ema_decay", 0.999)
-        self.train_step = make_train_step(
-            self.loss, self.schedule, self.ema_decay, augment=augment, mixup=mixup,
-            iter_size=int(ap.get("iter_size", 1)))
+        iter_size = int(ap.get("iter_size", 1))
+        self._pad_to = 1
+        if self._pp_n_micro:
+            # pipeline parallelism is a microbatching scheme of its own
+            if iter_size != 1:
+                raise ValueError("pipeline_parallel replaces iter_size gradient accumulation "
+                                 "(same microbatch semantics): set one, not both")
+            if self._nproc != 1:
+                raise ValueError("pipeline_parallel runs in one process; train over "
+                                 "processes with the data-parallel step")
+            n_data, n_model = mesh.shape["data"], mesh.shape["model"]
+            self._pad_to = math.lcm(n_data * n_model, n_data * self._pp_n_micro)
+            if self.batch_size % self._pad_to:
+                # every full batch would be padded with duplicate rows
+                raise ValueError(
+                    f"pipeline_parallel: batch_size={self.batch_size} must be divisible by "
+                    f"lcm(n_devices, data_axis*n_micro)={self._pad_to} (mesh {mesh.shape}, "
+                    f"n_micro={self._pp_n_micro}): otherwise every batch is padded with "
+                    "duplicate rows")
+            self.train_step = make_pp_train_step(
+                self.loss, self.schedule, self.ema_decay, mesh, self._pp_n_micro,
+                augment=augment, mixup=mixup)
+        else:
+            self.train_step = make_train_step(
+                self.loss, self.schedule, self.ema_decay, augment=augment, mixup=mixup,
+                iter_size=iter_size)
         self.val_step = make_val_step(self.loss)
         self.predict_step = make_predict_step()
         self.ckpt_manager = ckpt_lib.CheckpointManager(
@@ -198,7 +235,10 @@ class Trainer:
             model.load_state_dict(state)
             self.logger.info(f"Initialized {encoder_name} from ImageNet-pretrained "
                              f"{nn_kwargs['model_name']}")
-        model.to(self.device)
+        if self._pp_n_micro:
+            place_stages(model, self.mesh.model_devices(0))
+        else:
+            model.to(self.device)
         opt_name, opt_kwargs = self.optimizer_spec
         optimizer = build_optimizer(opt_name, opt_kwargs, model, self.freeze_conv2d_encoder)
         self.state = TrainState(model, optimizer)
@@ -209,8 +249,9 @@ class Trainer:
     def _device_batches(self, loader, epoch: int):
         """Yields (frames, targets, valid) on the device. Under a process
         group each batch is padded, by cycling its rows, to the largest
-        count any process has for that step; ``valid`` is this process's
-        count of real rows."""
+        count any process has for that step; under pipeline parallelism to a
+        multiple of the grid's devices and of data axis · n_micro. ``valid``
+        is this process's count of real rows."""
         iterator = loader.epoch(epoch) if hasattr(loader, "epoch") else iter(loader)
         valids: list[int] = []
 
@@ -220,6 +261,9 @@ class Trainer:
                 if self._nproc > 1:
                     most = int(multihost.allgather(valid).max())
                     frames, targets, valid = pad_batch_to_devices(frames, targets, most)
+                elif self._pad_to > 1:
+                    frames, targets, valid = pad_batch_to_devices(frames, targets,
+                                                                  self._pad_to)
                 valids.append(valid)
                 yield frames, targets
 

@@ -57,17 +57,49 @@ def step_generators(seed: int, step: int, device) -> tuple[torch.Generator, torc
 
 def average_gradients(model: torch.nn.Module, count: int) -> None:
     """Average the parameters' gradients over the process group: one
-    all-reduce of every gradient flattened into one float32 buffer."""
+    all-reduce of every gradient flattened into one float32 buffer, on the
+    first gradient's device (a tensor-parallel state's slices lie on
+    several, ``parallel/sharding_rules.py``)."""
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     if not grads:
         return
-    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    flat = torch.cat([g.reshape(-1).float().to(grads[0].device) for g in grads])
     dist.all_reduce(flat)
     flat /= count
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
         offset += g.numel()
+
+
+def prepare_batch(frames: torch.Tensor, targets: torch.Tensor, host_gen: torch.Generator,
+                  dev_gen: torch.Generator, augment: Optional[AugmentConfig] = None,
+                  mixup: Optional[Mixup] = None, shard: Optional[tuple[int, int]] = None):
+    """One microbatch's uint8 frames → (augmented, mixed frames, targets):
+    /255, the augmentation sampled from the step's generators and applied,
+    then mixup. ``shard`` = (process index, count) in a data-parallel step:
+    the draws are made for the global batch and this process takes its
+    rows; mixup pairs rows across processes, so the augmented batch is
+    gathered before it."""
+    x = normalize_frames(frames)
+    index, count = shard or (0, 1)
+    b = x.shape[0]
+    rows = slice(index * b, (index + 1) * b)
+    if augment is not None:
+        _, t, h, w = x.shape
+        params = sample_augment_params(host_gen, dev_gen, count * b, t, h, w, augment)
+        if shard is not None:
+            params = {k: v[rows] for k, v in params.items()}
+        x = apply_augment(x, params, augment)
+    if mixup is not None:
+        draw = mixup.sample(host_gen, *x.shape[-2:])
+        if shard is None:
+            x, targets = mixup.apply(x, targets, draw)
+        else:
+            x, targets = mixup.apply(global_batch_from_local(x),
+                                     global_batch_from_local(targets), draw)
+            x, targets = x[rows], targets[rows]
+    return x, targets
 
 
 def make_train_step(
@@ -95,27 +127,6 @@ def make_train_step(
     each microbatch's global batch is the processes' rows of that
     microbatch."""
 
-    def prepare(frames, targets, host_gen, dev_gen, shard):
-        x = normalize_frames(frames)
-        index, count = shard or (0, 1)
-        b = x.shape[0]
-        rows = slice(index * b, (index + 1) * b)
-        if augment is not None:
-            _, t, h, w = x.shape
-            params = sample_augment_params(host_gen, dev_gen, count * b, t, h, w, augment)
-            if shard is not None:
-                params = {k: v[rows] for k, v in params.items()}
-            x = apply_augment(x, params, augment)
-        if mixup is not None:
-            draw = mixup.sample(host_gen, *x.shape[-2:])
-            if shard is None:
-                x, targets = mixup.apply(x, targets, draw)
-            else:
-                x, targets = mixup.apply(global_batch_from_local(x),
-                                         global_batch_from_local(targets), draw)
-                x, targets = x[rows], targets[rows]
-        return x, targets
-
     def train_step(state: TrainState, frames: torch.Tensor, targets: torch.Tensor,
                    seed: int) -> dict:
         model = state.model.train()
@@ -132,7 +143,8 @@ def make_train_step(
         outs, tgts = [], []
         for i in range(iter_size):
             part = slice(i * micro, (i + 1) * micro)
-            x, tgt = prepare(frames[part], targets[part], host_gen, dev_gen, shard)
+            x, tgt = prepare_batch(frames[part], targets[part], host_gen, dev_gen, augment,
+                                   mixup, shard)
             out = model(x)
             loss = loss_fn(out, tgt)
             (loss / iter_size).backward()

@@ -3,10 +3,13 @@ flagship chunked inference path, the flagship training path, the rest of
 the four-stage recipe with its evaluation, the serving path, the
 fold-fused ensemble, the sealed export and the parallel paths, the
 weight sources and model families (ImageNet files, reference ``.pth``
-checkpoints, the s2d stem, ``multichan_stacker``, ``classifier2d``), and
-the host data path (gray stores, the native gather, the rehearsal CLI).
+checkpoints, the s2d stem, ``multichan_stacker``, ``classifier2d``), the
+host data path (gray stores, the native gather, the rehearsal CLI), and
+model parallelism (pipeline- and tensor-parallel training, the serving
+mesh, the dryrun).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase model_parallel   # phases 1 and 10 alone
 
 Phases, in order (any failure exits nonzero; each prints its seconds):
 
@@ -21,8 +24,9 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    (torch.profiler over 10 calls, median of per-call sums: ``device_ms``;
    ``direct_ms`` times the op's CUDA function called directly, without the
    ``torch.library`` dispatcher;
-   the serving shapes' rows take each kernel's median over the launches
-   the profiler saw, ``device_ms_method``). Prints one JSON
+   the serving and multi-channel shapes' rows, where the profiler lost
+   records, time each call with CUDA events queued behind a sleeping
+   kernel, ``device_ms_method``). Prints one JSON
    line per kernel and shape with its bound on an H100 SXM. GeM at the
    inference head's and the train step's head's shapes in bf16, with its
    backward in float32 and bf16, and two runs bit-identical; the depthwise
@@ -157,13 +161,31 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    stage 1 over all folds (stage 3 reads every train game's out-of-fold
    predictions), stages 2-4 on fold 0, the predictions, the ensemble and
    its mAP, with stage 4's losses finite and every step's launches counted.
-10. Prints the ``kernels`` JSON line (one row per kernel and main path:
+10. Model parallelism (``model_parallel``), at the flagship's full width
+   (``flagship_config``, bf16) on a (1, 2) grid of two cards, or of the one
+   card twice: one pipelined step (``parallel/pipeline.py``, n_micro 2,
+   augmentation and mixup on, drop rates 0) against the ``iter_size`` = 2
+   step on one device from the same weights and batch (loss, predictions,
+   every gradient, and after the step every parameter, EMA weight and BN
+   buffer), the warp launched on stage 0's card and GeM on stage 1's; a
+   ``Trainer.fit`` through ``config["pipeline_parallel"]`` (a warmup and a
+   train epoch of 3 steps each, validation on the split EMA, a ``.ckpt``
+   that must be byte for byte the unsplit model's), the same launches per
+   card; a step over a state split by ``shard_state`` (``min_channels``
+   256) against the replicated step, held as the pipelined step is, and
+   the state's bytes on each model-axis index; ``MultiStreamPredictor(mesh=)`` on an
+   N × 1 grid of the cards against a ``StreamingPredictor`` per stream on
+   phase 6's feed, GeM and dwconv3d launched on every data-axis card; the
+   dryrun (``cli/dryrun_multichip.py``) over the visible cards. Prints ms
+   per step of pp, ``iter_size``, tp and one device, and the mesh's tick ms
+   by bucket, each beside the card's name and power limit.
+11. Prints the ``kernels`` JSON line (one row per kernel and main path:
    GeM on the inference and on the training path, the depthwise conv, and
    the warp's H and V passes, each with its own launches and bound, and
-   ``launches_by_path``: the recipe, serving, phase-7, -8 and -9 paths of
-   the same kind, each of which must launch it; then GeM and the depthwise
-   conv at the serving and the multi-channel shapes, each with its paths),
-   then the device line last.
+   ``launches_by_path``: the recipe, serving, phase-7, -8, -9 and -10 paths
+   of the same kind, each of which must launch it; then GeM and the
+   depthwise conv at the serving and the multi-channel shapes, each with
+   its paths), then the device line last.
 
 Float32 comparisons run with TF32 off (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32`` set False): cuDNN would
@@ -173,6 +195,7 @@ otherwise run float32 convolutions in TF32.
 from __future__ import annotations
 
 import contextlib
+import copy
 import csv
 import gc
 import hashlib
@@ -207,6 +230,7 @@ from ball_action_spotting_torch.cli import (
     export_model,
     rehearsal,
 )
+from ball_action_spotting_torch.cli.dryrun_multichip import dryrun_multichip
 from ball_action_spotting_torch.convert import flax_tree_to_state_dict, state_dict_to_flax_tree
 from ball_action_spotting_torch.core.indexes import StackIndexesGenerator
 from ball_action_spotting_torch.core.postprocess import (
@@ -241,6 +265,7 @@ from ball_action_spotting_torch.models.effnetv2 import (
     BatchNormAct,
     BlockDef,
     EfficientNetV2Features,
+    set_dropout_generator,
 )
 from ball_action_spotting_torch.models.fold_bn import fold_bn_state_dict
 from ball_action_spotting_torch.ops import KERNELS
@@ -259,18 +284,24 @@ from ball_action_spotting_torch.ops.dwconv3d import (
     dwconv3d_reference,
 )
 from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_reference
-from ball_action_spotting_torch.ops.losses import FocalLoss
+from ball_action_spotting_torch.ops.losses import FocalLoss, build_loss
 from ball_action_spotting_torch.ops.mixup import Mixup, make_mixup_fn
 from ball_action_spotting_torch.parallel import multihost
 from ball_action_spotting_torch.parallel.mesh import make_mesh
 from ball_action_spotting_torch.parallel.multihost import process_slice
+from ball_action_spotting_torch.parallel.pipeline import make_pp_train_step, place_stages
+from ball_action_spotting_torch.parallel.sharding_rules import SHARDS, gathered, shard_state
 from ball_action_spotting_torch.predict.__main__ import main as ball_predict
 from ball_action_spotting_torch.predict.export import (
     ExportedChunkPredictor,
     export_chunked_predictor,
 )
 from ball_action_spotting_torch.predict.fused import FusedFoldsPredictor
-from ball_action_spotting_torch.predict.multistream import device_state_tick_ms, device_tick_ms
+from ball_action_spotting_torch.predict.multistream import (
+    MultiStreamPredictor,
+    device_state_tick_ms,
+    device_tick_ms,
+)
 from ball_action_spotting_torch.predict.pipeline import predict_games
 from ball_action_spotting_torch.predict.server import (
     _to_host,
@@ -310,6 +341,7 @@ from ball_action_spotting_torch.utils.recipe import spotting_recipe
 # float32 rate outside the tensor cores, which the kernels' arithmetic uses.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+SLEEP_CYCLES = 2_000_000  # ~1 ms of a spinning kernel at the H100's clock
 
 CHUNK = 128
 HEIGHT, WIDTH = 736, 1280
@@ -516,34 +548,32 @@ def device_ms(fn, match: str, reps: int = 10, warmup: int = 2, per_call: int = 1
          f"expected {per_call * reps}")
 
 
-def device_ms_per_kernel(fn, match: str, kernels: int, reps: int = 10, warmup: int = 2,
-                         tries: int = 3) -> float:
-    """``device_ms`` for the serving shapes' rows, where the tracer missed
-    kernels of a window on the card (7 of 24 at GeM's two launches at
-    (80, 23, 40, 256)): the sum over the ``kernels`` kernels whose name
-    holds ``match`` of each one's median device time over the launches the
-    profiler saw of its last ``reps``, at least ``reps // 2``. The window
-    runs ``warmup + reps`` calls and is profiled again, up to ``tries``
-    times, while it sees fewer."""
-    from torch.profiler import ProfilerActivity, profile
-
+def device_ms_events(fn, kernel, reps: int = 10, warmup: int = 2) -> float:
+    """The device time of one call of ``fn`` by CUDA events, for the rows
+    where torch.profiler's window lost kernel records on the card (7 of 24
+    launches at GeM's serving shape; 3 of 12 ``dwconv3d_kernel`` launches at
+    the multi-channel shape in each of 3 tries, ROADMAP C8). Each call is
+    enqueued behind a ``torch.cuda._sleep`` of ``SLEEP_CYCLES`` on the
+    stream, so that its two events bracket its device work alone and not the
+    host's launch path; the median of ``reps`` calls. ``kernel``'s launch
+    count must grow by exactly one per call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    seen = []
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(warmup + reps):
-                fn()
-            torch.cuda.synchronize()
-        by_name: dict[str, list] = {}
-        for e in sorted(prof.events(), key=lambda e: e.time_range.start):
-            if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name:
-                by_name.setdefault(e.name, []).append((e.time_range.end - e.time_range.start) / 1e3)
-        seen.append({name[:40]: len(v) for name, v in by_name.items()})
-        if len(by_name) == kernels and all(len(v) >= reps // 2 for v in by_name.values()):
-            return sum(statistics.median(v[-reps:]) for v in by_name.values())
-    fail(f"the profiler saw {seen} launches of {match!r} in windows of {warmup + reps} calls")
+    before = kernel.launches
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    if kernel.launches - before != reps:
+        fail(f"{kernel.name}: {kernel.launches - before} launches in {reps} timed calls")
+    return statistics.median(times)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -605,7 +635,7 @@ def check_gem(dev, shape: tuple, path: str, per_kernel: bool = False) -> dict:
     (num_tta·CHUNK·5, 23, 40, 256) or the train step's head
     (BATCH, 23, 40, 5·256). The backward is checked on the first CHUNK·5
     rows in float32 and in bf16 (the train step's dtype). ``per_kernel``
-    takes the device time by ``device_ms_per_kernel``."""
+    takes the device time by ``device_ms_events``."""
     g = torch.Generator(device=dev).manual_seed(1)
     x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
     p = torch.tensor([3.0], device=dev)
@@ -632,10 +662,10 @@ def check_gem(dev, shape: tuple, path: str, per_kernel: bool = False) -> dict:
         "max_abs_diff": err, "tolerance": tol,
         "kernel_ms": median_ms(lambda: gem_pool(x, p)),
         "direct_ms": median_ms(lambda: gem_ops.gem_pool_cuda(x, p)),
-        "device_ms": (device_ms_per_kernel(lambda: gem_pool(x, p), "gem_", launches)
+        "device_ms": (device_ms_events(lambda: gem_pool(x, p), gem_ops.KERNEL)
                       if per_kernel else device_ms(lambda: gem_pool(x, p), "gem_",
                                                    per_call=launches)),
-        "device_ms_method": "per_kernel_median" if per_kernel else "per_call_sum",
+        "device_ms_method": "cuda_events_behind_sleep" if per_kernel else "per_call_sum",
         "plain_ms": median_ms(lambda: gem_pool_reference(x, p)),
         "library_ms": median_ms(
             lambda: x.float().clamp_min(1e-6).pow(p).mean((1, 2)).pow(1.0 / p)),
@@ -651,7 +681,7 @@ def check_dwconv(dev, num_tta: int, n: int | None = None, path: str = "inference
                  per_kernel: bool = False) -> dict:
     """The depthwise conv at (n, 5, 23, 40, 576) bf16, n = num_tta·CHUNK
     (the chunk program's) unless given. ``per_kernel`` takes the device
-    time by ``device_ms_per_kernel``."""
+    time by ``device_ms_events``."""
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((n or num_tta * CHUNK, 5, 23, 40, 576), generator=g,
                     device=dev).to(torch.bfloat16)
@@ -674,9 +704,9 @@ def check_dwconv(dev, num_tta: int, n: int | None = None, path: str = "inference
         "max_abs_diff": err, "tolerance": tol, "library_max_abs_diff": lib_err,
         "kernel_ms": median_ms(lambda: dwconv3d(x, k)),
         "direct_ms": median_ms(lambda: dw_ops._dwconv3d_cuda_route(x, k)),
-        "device_ms": (device_ms_per_kernel(lambda: dwconv3d(x, k), "dwconv3d_kernel", 1)
+        "device_ms": (device_ms_events(lambda: dwconv3d(x, k), dw_ops.KERNEL)
                       if per_kernel else device_ms(lambda: dwconv3d(x, k), "dwconv3d_kernel")),
-        "device_ms_method": "per_kernel_median" if per_kernel else "per_call_sum",
+        "device_ms_method": "cuda_events_behind_sleep" if per_kernel else "per_call_sum",
         "plain_ms": median_ms(lambda: dwconv3d_reference(x, k)),
         "library_ms": median_ms(lambda: dwconv3d_grouped_conv(x, k)),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1018,15 +1048,21 @@ def agree(name: str, a: np.ndarray, b: np.ndarray, atol: float) -> float:
     return diff
 
 
+def flagship_video() -> np.ndarray:
+    """The inference phase's synthetic video: 3 chunks of predictions."""
+    num_frames = 3 * CHUNK + 30
+    src = SyntheticSource(num_frames=num_frames, height=HEIGHT, width=WIDTH, seed=0,
+                          events={100: 0, 200: 1, 300: 0})
+    return np.stack([src.fetch_frame(i) for i in range(num_frames)])
+
+
 def flagship(dev, card: str) -> tuple[dict, tuple, np.ndarray, np.ndarray, dict]:
     """The chunked inference phase; returns its launches, the seeded
     weights and synthetic video, which the serving and ensemble phases use
     again, the main path's predictions, and its fps (which phase 9 compares
     predicting from a store with)."""
-    num_frames = 3 * CHUNK + 30  # 3 chunks of predictions
-    src = SyntheticSource(num_frames=num_frames, height=HEIGHT, width=WIDTH, seed=0,
-                          events={100: 0, 200: 1, 300: 0})
-    frames = np.stack([src.fetch_frame(i) for i in range(num_frames)])
+    frames = flagship_video()
+    num_frames = len(frames)
     expected = num_frames - 30
     weights = (flagship_weights(dev, frames), PARAMS)
 
@@ -1901,6 +1937,18 @@ def serving_kernels(dev) -> dict:
     return rows
 
 
+def serving_frames(video: np.ndarray) -> np.ndarray:
+    """One synthetic 720p video, the streaming engine's: the middle 720 rows
+    of the inference phase's."""
+    top = (video.shape[1] - VIDEO_HEIGHT) // 2
+    return np.ascontiguousarray(video[:STREAM_FRAMES, top:top + VIDEO_HEIGHT])
+
+
+def serving_videos(frames: np.ndarray) -> dict:
+    """Four 96-frame segments of ``serving_frames``, one per live stream."""
+    return {k: frames[k * SERVE_FRAMES:(k + 1) * SERVE_FRAMES] for k in range(SERVE_STREAMS)}
+
+
 def serving(dev, weights, video: np.ndarray, card: str) -> tuple[dict, dict]:
     """The serving phase on the inference phase's synthetic ``video``, its
     middle 720 rows; returns the launches of each path and the kernel rows
@@ -1917,11 +1965,8 @@ def serving(dev, weights, video: np.ndarray, card: str) -> tuple[dict, dict]:
         return out
 
     rows = step("kernels", serving_kernels, dev)
-    # one synthetic 720p video: the streaming engine's, and four 96-frame
-    # segments of it, one per live stream
-    top = (video.shape[1] - VIDEO_HEIGHT) // 2
-    frames = np.ascontiguousarray(video[:STREAM_FRAMES, top:top + VIDEO_HEIGHT])
-    videos = {k: frames[k * SERVE_FRAMES:(k + 1) * SERVE_FRAMES] for k in range(SERVE_STREAMS)}
+    frames = serving_frames(video)
+    videos = serving_videos(frames)
     step("streaming", streaming_vs_chunked, dev, weights, frames, launches)
     runs = step("engines", serving_engines, dev, weights, videos, launches)
     step("http", serving_http, dev, weights, videos, runs, launches)
@@ -3100,7 +3145,411 @@ def host_data_path(dev, card: str, fps_main: dict, work: Path) -> dict:
     return launches
 
 
+# -------------------------------------------------------------- phase 10 ---
+
+PP_MICRO = 2            # pipeline_parallel's n_micro: pp(2) against iter_size=2
+PP_TRAINER_STEPS = 3
+MP_TIMED_STEPS = 3      # timed steps of each layout, after one
+TP_MIN_CHANNELS = 256   # JAX's default: the b0 encoder's and 3D blocks' widest convs
+# pp against iter_size and tp against the replicated step run the same
+# kernels on the same data under deterministic cuDNN: four calls on one and
+# on four H100s read 0.0 for every prediction and gradient. Only pp's loss
+# sums in another order (one mean over the concatenated microbatches, not
+# the mean of their means): 7.2e-8 relative in each call, held at 1e-6.
+MP_LOSS_RTOL = 1e-6
+MP_EXACT = 0.0          # predictions, gradients, parameters, EMA, BN buffers
+# MultiStreamPredictor(mesh=) against per-stream StreamingPredictor: the
+# same weights over other bucket shapes; 1.2e-7 (2 x 1 grid, one H100) and
+# 6.0e-8 (4 x 1, four) read, held at the CPU test's 1e-5
+SERVE_MESH_ATOL = 1e-5
+MP_DTYPE = torch.bfloat16
+DRYRUN_DEVICE = "cuda"
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for steps that are compared: its
+    bf16 grouped conv3d wgrad otherwise sums in a run-dependent order (a
+    depthwise weight's gradient of two runs of one step differed by 7.0e-3
+    of its max on the card)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def launches_on() -> dict:
+    """Each kernel's launches by device since the last ``reset_counts``."""
+    return {k.name: dict(k.launches_on) for k in KERNELS}
+
+
+def wall_step_ms(step, devices, warmup: int = 1) -> float:
+    """Median ms of ``MP_TIMED_STEPS`` calls of ``step()`` by the host
+    clock, every device synchronized before and after each (a pipelined
+    step spans two cards)."""
+    def sync():
+        for d in dict.fromkeys(devices):
+            torch.cuda.synchronize(d)
+
+    times = []
+    for i in range(warmup + MP_TIMED_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        step()
+        sync()
+        if i >= warmup:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def mp_model(drop: bool = True):
+    """The flagship model (``flagship_config``'s kwargs; drop rates 0
+    unless ``drop``), seeded weights, in ``MP_DTYPE``, on the CPU."""
+    name, kwargs = flagship_config()["argus_params"]["nn_module"]
+    if not drop:
+        kwargs = dict(kwargs, drop_rate=0.0, drop_path_rate=0.0)
+    model = build_model(name, dtype=MP_DTYPE, **kwargs)
+    init_train_weights(model, torch.Generator().manual_seed(0))
+    return model
+
+
+def flagship_loss():
+    name, kwargs = flagship_config()["argus_params"]["loss"]
+    return build_loss(name, **kwargs)
+
+
+def mp_batch(dev, rows: int = BATCH, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.integers(0, 256, (rows, TRAIN_FRAMES, HEIGHT, WIDTH),
+                                           dtype=np.uint8)).to(dev)
+    targets = torch.from_numpy((rng.random((rows, 2)) > 0.7).astype(np.float32)).to(dev)
+    return frames, targets
+
+
+def step_record(aux: dict, state) -> dict:
+    """A train step's outcome on the CPU in float32, in the unsplit layout
+    (``gathered``): the loss, the predictions, each gradient, and after the
+    step the model's and the EMA's parameters and buffers."""
+    return {"loss": float(aux["loss"]),
+            "prediction": {"prediction": aux["prediction"].float().cpu()},
+            "gradient": gathered({n: p.grad.float().cpu()
+                                  for n, p in state.model.named_parameters()
+                                  if p.grad is not None}),
+            "model": gathered({n: t.float().cpu() for n, t in state.model.state_dict().items()}),
+            "ema": gathered({n: t.float().cpu() for n, t in state.ema.state_dict().items()})}
+
+
+def compare_steps(name: str, got: dict, ref: dict) -> dict:
+    """Two ``step_record``s held to each other: the loss within
+    ``MP_LOSS_RTOL``, every other tensor exactly (``MP_EXACT``)."""
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    row = {"check": name, "loss": got["loss"], "loss_ref": ref["loss"],
+           "loss_rel_diff": loss_rel, "loss_rtol": MP_LOSS_RTOL, "tensor_atol": MP_EXACT}
+    bad = [] if loss_rel <= MP_LOSS_RTOL else [f"loss {loss_rel}"]
+    for part in ("prediction", "gradient", "model", "ema"):
+        if got[part].keys() != ref[part].keys():
+            fail(f"{name}: the {part} tensors differ in names")
+        diffs = {n: (got[part][n] - t).abs().max().item() for n, t in ref[part].items()}
+        worst = max(diffs, key=diffs.get)
+        row[f"{part}_max_abs_diff"], row[f"{part}_worst"] = diffs[worst], worst
+        row[f"{part}_tensors"] = len(diffs)
+        if diffs[worst] > MP_EXACT:
+            bad.append(f"{part} {worst} {diffs[worst]}")
+    log(row)
+    if bad:
+        fail(f"{name}: {', '.join(bad)}")
+    return row
+
+
+def intersection_us(a: list, b: list) -> float:
+    """The length of the intersection of two unions of intervals:
+    |A| + |B| - |A ∪ B|."""
+    return union_us(a) + union_us(b) - union_us(a + b)
+
+
+def pp_overlap(step, devices: list) -> dict | None:
+    """One pipelined step under torch.profiler: each stage card's busy ms
+    (the union of its kernels' intervals) and the ms both were busy at
+    once, with its share of the step's wall time. None where both stages
+    are one card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if devices[0] == devices[1]:
+        return None
+    step()  # warm
+    for d in devices:
+        torch.cuda.synchronize(d)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        for d in devices:
+            torch.cuda.synchronize(d)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = {d.index: [] for d in devices}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.device_index in spans:
+            spans[e.device_index].append((e.time_range.start, e.time_range.end))
+    both_ms = intersection_us(*spans.values()) / 1e3
+    return {"wall_ms": wall_ms,
+            "busy_ms": {f"cuda:{i}": union_us(v) / 1e3 for i, v in spans.items()},
+            "both_busy_ms": both_ms, "both_busy_share": both_ms / wall_ms}
+
+
+def pp_vs_iter_size(dev, devices: list, card: str, launches: dict) -> dict:
+    """One pipelined step (n_micro 2) on a (1, 2) grid against the
+    ``iter_size`` = 2 step on one device, from the same weights and batch,
+    augmentation and mixup on, drop rates 0, cuDNN deterministic: the
+    outcomes of ``step_record`` (the stages' weights on their two cards,
+    AdamW's step and the EMA over them included); then ms
+    per step of each and of the flagship's plain step on one device, and
+    where the stages are two cards the share of a step both are busy."""
+    loss_fn = flagship_loss()
+    aug, mix = AugmentConfig(), Mixup()
+    schedule = lambda count: 1e-4  # noqa: E731
+    model = mp_model(drop=False)
+    mesh = make_mesh(1, 2, devices)
+    pp_model = place_stages(copy.deepcopy(model), devices)
+    pp_state = TrainState(pp_model, build_optimizer("AdamW", {}, pp_model))
+    ref_model = copy.deepcopy(model).to(dev)
+    ref_state = TrainState(ref_model, build_optimizer("AdamW", {}, ref_model))
+    pp_step = make_pp_train_step(loss_fn, schedule, 0.999, mesh, PP_MICRO, augment=aug,
+                                 mixup=mix)
+    ref_step = make_train_step(loss_fn, schedule, 0.999, augment=aug, mixup=mix,
+                               iter_size=PP_MICRO)
+    frames, targets = mp_batch(dev)
+    with deterministic_cudnn():
+        aux = counted("pp_step", launches, lambda: pp_step(pp_state, frames, targets, 7))
+        on = launches_on()
+        got = step_record(aux, pp_state)
+        ref = step_record(ref_step(ref_state, frames, targets, 7), ref_state)
+    row = compare_steps("pp_vs_iter_size", got, ref)
+    stage0, stage1 = (str(d) for d in devices)
+    # the augmentation runs per microbatch: an H and a V pass each
+    if on["warp"].get(stage0, 0) != 2 * PP_MICRO or on["gem"].get(stage1, 0) < 1:
+        fail(f"the pipelined step did not launch the warp on {stage0} and GeM on {stage1}: {on}")
+    row["launches_on"] = on
+    row["ms_per_step_pp"] = wall_step_ms(lambda: pp_step(pp_state, frames, targets, 7), devices)
+    row["pp_overlap"] = pp_overlap(lambda: pp_step(pp_state, frames, targets, 7), devices)
+    row["ms_per_step_iter_size"] = wall_step_ms(
+        lambda: ref_step(ref_state, frames, targets, 7), [dev])
+    del pp_state, ref_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_model = mp_model().to(dev)
+    one = TrainState(one_model, build_optimizer("AdamW", {}, one_model))
+    one_step = make_train_step(loss_fn, schedule, 0.999, augment=aug, mixup=mix)
+    row["ms_per_step_one_device"] = wall_step_ms(lambda: one_step(one, frames, targets, 7),
+                                                 [dev])
+    log({"phase": "pp_step", "card": card, "stage_devices": [str(d) for d in devices],
+         **{k: row[k] for k in ("launches_on", "ms_per_step_pp", "ms_per_step_iter_size",
+                                "ms_per_step_one_device", "pp_overlap")}})
+    return row
+
+
+def pp_trainer(dev, devices: list, launches: dict) -> dict:
+    """``Trainer.fit`` through ``config["pipeline_parallel"]`` on a (1, 2)
+    grid (augmentation on): a warmup and a train epoch of
+    ``PP_TRAINER_STEPS`` steps each, validation on the split EMA, whose
+    logits come back to stage 0's card beside the targets, and the epoch's
+    ``.ckpt``, which must be byte for byte the one of the same weights in
+    an unsplit model; the warp's launches on stage 0's card, GeM's on stage
+    1's; then a prediction from the split EMA."""
+    config = dict(flagship_config(), pipeline_parallel=PP_MICRO)
+    epochs = sum(config["num_epochs"])
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(config, list(ball.classes), Path(tmp), augment=AugmentConfig(),
+                          compute_dtype=MP_DTYPE, mesh=make_mesh(1, 2, devices))
+        trainer.init_state()
+        batches = [tuple(t.cpu().numpy() for t in mp_batch(dev, seed=s))
+                   for s in range(PP_TRAINER_STEPS)]
+        val_batches = [tuple(t.cpu().numpy() for t in mp_batch(dev, seed=PP_TRAINER_STEPS))]
+        losses, step = [], trainer.train_step
+
+        def recording_step(*args):
+            aux = step(*args)
+            losses.append(float(aux["loss"]))
+            return aux
+
+        trainer.train_step = recording_step
+        best = counted("pp_train", launches,
+                       lambda: trainer.fit(BatchList(batches), BatchList(val_batches),
+                                           resume=False))
+        on = launches_on()
+        preds = trainer.predict_step(trainer.state, torch.from_numpy(batches[0][0]).to(dev))
+        saved = sorted(Path(tmp).glob("*.ckpt"))
+        nn_name, nn_kwargs = config["argus_params"]["nn_module"]
+        plain, plain_ema = (build_model(nn_name, dtype=MP_DTYPE, **nn_kwargs) for _ in range(2))
+        plain.load_state_dict(trainer.state.model.state_dict())
+        plain_ema.load_state_dict(trainer.state.ema.state_dict())
+        unsplit = Path(tmp) / "unsplit.bin"
+        save_checkpoint(unsplit, trainer._params_dict(),
+                        state_dict_to_flax_tree(plain_ema.state_dict(), plain_ema),
+                        state_dict_to_flax_tree(plain.state_dict(), plain))
+        same_ckpt = len(saved) == 1 and saved[0].read_bytes() == unsplit.read_bytes()
+    stage0, stage1 = (str(d) for d in devices)
+    row = {"check": "pp_trainer", "steps": len(losses), "losses": losses,
+           "val_loss": best.get("val_loss"), "ckpts": [p.name for p in saved],
+           "ckpt_is_unsplit_layout": same_ckpt, "launches": launches["pp_train"],
+           "launches_on": on, "prediction_shape": list(preds.shape)}
+    log(row)
+    steps = epochs * PP_TRAINER_STEPS
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"pipeline_parallel Trainer steps: {losses}")
+    if not math.isfinite(best.get("val_loss", math.nan)):
+        fail(f"pipeline_parallel Trainer validation: {best}")
+    if not same_ckpt:
+        fail(f"the split model's checkpoints {saved} are not the unsplit model's layout")
+    if on["warp"].get(stage0, 0) != 2 * PP_MICRO * steps or on["gem"].get(stage1, 0) < steps:
+        fail(f"the pipelined Trainer steps did not launch the warp on {stage0} and GeM on "
+             f"{stage1} on every step: {on}")
+    if tuple(preds.shape) != (BATCH, 2) or not bool(torch.isfinite(preds).all()):
+        fail(f"the split model's prediction: {tuple(preds.shape)}")
+    return row
+
+
+def tp_vs_replicated(dev, devices: list) -> dict:
+    """A train step over a state split by ``shard_state`` on a (1, 2) grid
+    against the same step replicated (augmentation and mixup on, drop rates
+    0, cuDNN deterministic): the outcomes of ``step_record`` (AdamW's step
+    and the EMA over the slices on the model-axis cards included), and the
+    state's bytes on each model-axis index; ms per step."""
+    loss_fn = flagship_loss()
+    step = make_train_step(loss_fn, lambda count: 1e-4, 0.999, augment=AugmentConfig(),
+                           mixup=Mixup())
+    model = mp_model(drop=False).to(dev)
+    ref = TrainState(model, build_optimizer("AdamW", {}, model))
+    frames, targets = mp_batch(dev, seed=3)
+    step(ref, frames, targets, 1)  # the moments exist before the split
+    set_dropout_generator(ref.model, None)  # a generator cannot be copied
+    tp = shard_state(copy.deepcopy(ref), make_mesh(1, 2, devices), TP_MIN_CHANNELS, row=0)
+
+    def state_bytes(state) -> dict:
+        """Bytes of parameters, EMA and moments by model-axis index."""
+        out: dict = {}
+        pairs = zip(state.model.named_parameters(), state.ema.parameters())
+        for (name, p), e in pairs:
+            index = int(name.rpartition(".")[2]) if SHARDS + "." in name else 0
+            moments = sum(v.numel() * v.element_size()
+                          for v in state.optimizer.state.get(p, {}).values()
+                          if torch.is_tensor(v) and v.dim())
+            out[index] = out.get(index, 0) + p.numel() * p.element_size() \
+                + e.numel() * e.element_size() + moments
+        return out
+
+    with deterministic_cudnn():
+        got = step_record(step(tp, frames, targets, 2), tp)
+        ref_got = step_record(step(ref, frames, targets, 2), ref)
+    row = compare_steps("tp_vs_replicated", got, ref_got)
+    row["state_bytes_by_model_index"] = {
+        f"{i} ({devices[i]})": b for i, b in sorted(state_bytes(tp).items())}
+    row["state_bytes_replicated"] = sum(state_bytes(ref).values())
+    row["split_leaves"] = sum(name.endswith(SHARDS + ".0")
+                              for name, _ in tp.model.named_parameters())
+    row["ms_per_step_tp"] = wall_step_ms(lambda: step(tp, frames, targets, 2), devices)
+    log({"check": "tp_state_bytes", "by_model_index": row["state_bytes_by_model_index"],
+         "replicated": row["state_bytes_replicated"], "split_leaves": row["split_leaves"]})
+    return row
+
+
+def serving_mesh(dev, weights, videos: dict, card: str, launches: dict) -> dict:
+    """``MultiStreamPredictor(mesh=)`` on an N × 1 grid of the visible cards
+    (the one card twice) against a ``StreamingPredictor`` per stream on the
+    serving feed; GeM and dwconv3d launched on every data-axis card; ms per
+    steady-state tick by bucket."""
+    devices = parallel_devices(dev)
+    events = serving_feed()
+    kw = dict(weights=weights, tta=True)
+    streaming = StreamingPredictor(device=dev, **kw)
+    per_stream = {}
+    for k, frames in videos.items():
+        idx, raw = get_raw_predictions(streaming, FramesSource(frames), SERVE_FRAMES)
+        per_stream[k] = dict(zip(idx, raw))
+    del streaming
+    predictor = MultiStreamPredictor(mesh=make_mesh(len(devices), 1, devices), **kw)
+    warmed = warm_engine(predictor, SERVE_STREAMS, SERVE_MAX_BATCH)
+    run = counted("serve_mesh", launches, lambda: serve_direct(predictor, videos, events))
+    on = launches_on()
+    expected = {key: n - SERVE_WINDOW + 1 for key, n in fed_per_life(events).items()}
+    counts = {key: len(v) for key, v in run.items()}
+    if counts != expected:
+        fail(f"serve_mesh: predictions per stream life {counts}, expected {expected}")
+    diff = compare_runs("serve_mesh_vs_per_stream", run,
+                        {key: per_stream[key[0]] for key in expected}, SERVE_MESH_ATOL,
+                        same_keys=False)
+    for d in dict.fromkeys(str(d) for d in devices):
+        if on["gem"].get(d, 0) < 1 or on["dwconv3d"].get(d, 0) < 1:
+            fail(f"serve_mesh did not launch GeM and dwconv3d on {d}: {on}")
+    buckets = sorted({predictor._bucket_shape(b) for b in TICK_BUCKETS})
+    tick_ms = {b: device_tick_ms(predictor, b, reps=2)[0] for b in buckets}
+    row = {"phase": "serve_mesh", "card": card, "grid": f"{len(devices)}x1",
+           "grid_devices": [str(d) for d in devices], "warmed_buckets": warmed,
+           "max_abs_diff": diff, "atol": SERVE_MESH_ATOL, "launches": launches["serve_mesh"], "launches_on": on,
+           "tick_ms_by_bucket": tick_ms, "budget_ms": REALTIME_MS}
+    log(row)
+    return row
+
+
+def model_parallel(dev, card: str, weights, video: np.ndarray) -> dict:
+    """Phase 10: pipeline and tensor parallelism at the flagship's width on
+    a (1, 2) grid of two cards (the one card twice), the serving mesh, and
+    the dryrun over the visible cards; returns each path's launches."""
+    launches: dict = {}
+    devices = parallel_devices(dev)[:2]  # a (1, 2) grid: two cards, or the one twice
+    steps = {}
+
+    def step(name, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        steps[name] = time.perf_counter() - start
+        return out
+
+    pp = step("pp_vs_iter_size", pp_vs_iter_size, dev, devices, card, launches)
+    step("pp_trainer", pp_trainer, dev, devices, launches)
+    tp = step("tp_vs_replicated", tp_vs_replicated, dev, devices)
+    serve = step("serving_mesh", serving_mesh, dev, weights,
+                 serving_videos(serving_frames(video)), card, launches)
+    dryrun = step("dryrun", dryrun_multichip, max(1, torch.cuda.device_count()),
+                  DRYRUN_DEVICE)
+    if not any(leg["ok"] for leg in dryrun) or any(
+            not leg["ok"] and leg["leg"] != "dp x sp" for leg in dryrun):
+        fail(f"the dryrun's legs: {dryrun}")
+    log({"phase": "model_parallel", "card": card, "grid_devices": [str(d) for d in devices],
+         "ms_per_step": {"pp": pp["ms_per_step_pp"], "iter_size": pp["ms_per_step_iter_size"],
+                         "tp": tp["ms_per_step_tp"], "one_device": pp["ms_per_step_one_device"]},
+         "tick_ms_by_bucket_mesh": serve["tick_ms_by_bucket"],
+         "dryrun": dryrun, "seconds_by_step": steps})
+    return launches
+
+
+def device_line() -> dict:
+    return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                   "count": torch.cuda.device_count()}}
+
+
+def model_parallel_alone(dev, card: str) -> None:
+    """``--phase model_parallel``: phase 10 after the kernels' build, on
+    the inference phase's seeded weights and video."""
+    video = flagship_video()
+    weights = (flagship_weights(dev, video), PARAMS)
+    t0 = time.perf_counter()
+    launches = model_parallel(dev, card, weights, video)
+    log({"phase": "model_parallel_done", "seconds": time.perf_counter() - t0,
+         "launches": launches})
+    log(card)
+    log(device_line())
+
+
 def main() -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phase", choices=("all", "model_parallel"), default="all",
+                        help="model_parallel: build the kernels, then run phase 10 alone")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     torch.backends.cudnn.allow_tf32 = False
@@ -3111,6 +3560,8 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     build_kernels()
+    if args.phase == "model_parallel":
+        return model_parallel_alone(dev, card)
 
     t0 = time.perf_counter()
     # the inference main path runs hflip TTA, so its shapes are the
@@ -3162,6 +3613,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as work:
         store_launches = host_data_path(dev, card, fps, Path(work))
     log({"phase": "host_data_path_done", "seconds": time.perf_counter() - t0})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp_launches = model_parallel(dev, card, weights, video)
+    log({"phase": "model_parallel_done", "seconds": time.perf_counter() - t0})
 
     # one row per kernel and main path; the warp's H and V passes, two
     # launches of one kernel at different shapes and access patterns, each
@@ -3173,6 +3629,7 @@ def main() -> None:
     # (device-state tick).
     serving_paths = {path: serve_launches[path] for path in
                      ("streaming", "serve_host", "serve_device", "server", "server_host")}
+    serving_paths["serve_mesh"] = mp_launches["serve_mesh"]
     new_inference_paths = {path: new_launches[path] for path in
                            ("fused", "export", "export_cpu_traced", "data_parallel",
                             "fold_parallel")}
@@ -3190,7 +3647,8 @@ def main() -> None:
                       "stage2_pretrained": family_launches["stage2_pretrained"],
                       **{path: store_launches[path] for path in
                          ("store_train", "rehearsal_stage1_train", "rehearsal_stage2_train",
-                          "rehearsal_stage3_train", "rehearsal_stage4_train")}}
+                          "rehearsal_stage3_train", "rehearsal_stage4_train")},
+                      "pp_step": mp_launches["pp_step"], "pp_train": mp_launches["pp_train"]}
     sources = {
         "gem_pool_inference": ("gem", "ball_action_spotting_torch/csrc/gem.cu",
                                "ball_action_spotting_tpu/ops/pallas_gem.py:64", inference_paths),
@@ -3207,7 +3665,7 @@ def main() -> None:
         "gem_pool_serve_host": ("gem", "ball_action_spotting_torch/csrc/gem.cu",
                                 "ball_action_spotting_tpu/ops/pallas_gem.py:64",
                                 {p: serving_paths[p] for p in
-                                 ("serve_host", "streaming", "server_host")}),
+                                 ("serve_host", "streaming", "server_host", "serve_mesh")}),
         "gem_pool_serve_device": ("gem", "ball_action_spotting_torch/csrc/gem.cu",
                                   "ball_action_spotting_tpu/ops/pallas_gem.py:64",
                                   {p: serving_paths[p] for p in ("serve_device", "server")}),
@@ -3239,9 +3697,7 @@ def main() -> None:
         fail("a kernel time is not finite")
     log(card)
     log({"kernels": kernels})
-    log({"ok": True, "device": {"platform": "gpu",
-                                "kind": torch.cuda.get_device_name(0),
-                                "count": torch.cuda.device_count()}})
+    log(device_line())
 
 
 if __name__ == "__main__":

@@ -1,8 +1,7 @@
 """The rest of the host data layer on the CPU, each held to the JAX package on the same
 seeded inputs: ``HardSyntheticSource`` bitwise, ``smooth_scores_batch``
 (float32 on a device) within 1e-6 of JAX's and 2e-3 of scipy, profiling,
-the ``verify_data`` and ``visualize`` CLIs, and the ``Trainer``'s refusal
-of ``pipeline_parallel``."""
+and the ``verify_data`` and ``visualize`` CLIs."""
 
 import json
 import sys
@@ -23,10 +22,8 @@ from ball_action_spotting_torch.core.spotting import save_raw_predictions
 from ball_action_spotting_torch.data import HardSyntheticSource
 from ball_action_spotting_torch.data.gray_store import store_path_for_video, write_gray_store
 from ball_action_spotting_torch.domains import ball
-from ball_action_spotting_torch.train.engine import Trainer
 from ball_action_spotting_torch.utils.profiling import StageTimer, device_trace, synchronize
 from scripts import verify_data as jax_verify_data
-from tests.test_train_engine import tiny_config
 
 # --- HardSyntheticSource ------------------------------------------------------
 
@@ -269,13 +266,3 @@ def test_visualize_writes_a_video_per_half(tmp_path, monkeypatch):
     monkeypatch.setitem(sys.modules, "cv2", None)
     with pytest.raises(ImportError, match="cv2"):
         visualize.main(["--experiment", "exp", "--folds", "0"])
-
-
-# --- fault C5 -----------------------------------------------------------------
-
-@pytest.mark.parametrize("pp", [2, {"n_micro": 4}])
-def test_trainer_refuses_pipeline_parallel(pp, tmp_path):
-    config = tiny_config()
-    config["pipeline_parallel"] = pp
-    with pytest.raises(NotImplementedError, match="pipeline_parallel.*slice 12"):
-        Trainer(config, ["a", "b"], tmp_path, device="cpu")

@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from ball_action_spotting_torch.cli.dryrun_multichip import dryrun_multichip
 from ball_action_spotting_torch.device import resolve_device
 from ball_action_spotting_torch.models import build_model
 from ball_action_spotting_torch.parallel.mesh import make_mesh
@@ -69,7 +70,8 @@ NEW_MODULES = ("predict.fused", "predict.export", "predict.host_loop", "parallel
                "parallel.multihost", "cli.export_model", "models.torch_import",
                "models.pretrained", "models.multichan_stacker", "models.classifier2d",
                "native", "data.gray_store", "utils.profiling", "cli.transcode",
-               "cli.verify_data", "cli.rehearsal", "cli.visualize")
+               "cli.verify_data", "cli.rehearsal", "cli.visualize", "parallel.pipeline",
+               "parallel.sharding_rules", "cli.dryrun_multichip")
 
 
 def test_port_imports_no_jax():
@@ -133,3 +135,14 @@ def test_s2d_engines_and_new_families_need_cuda_or_cpu(tmp_path):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(config, ["a", "b"], tmp_path / name)
         build_model(name, model_name="efficientnetv2_tiny", **kwargs).to("cpu")
+
+
+def test_model_parallel_entry_points_need_cuda_or_cpu(tmp_path):
+    """The pipeline-parallel Trainer and the dryrun take CUDA devices
+    unless they are given the CPU, and never fall back to it."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is about a machine without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(tiny_config(pipeline_parallel=2), ["a", "b"], tmp_path / "pp")
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        dryrun_multichip(1)

@@ -1,8 +1,9 @@
 """The port's multi-stream serving engines on the CPU, after
-``tests/test_multistream.py`` (without its two mesh tests): batched across
-streams, the host-state and the device-state engine must give what a
-dedicated ``StreamingPredictor`` gives each stream; and one feed through
-the JAX package's two engines and the port's.
+``tests/test_multistream.py``: batched across streams, the host-state and
+the device-state engine must give what a dedicated ``StreamingPredictor``
+gives each stream, the host-state engine also spread over a grid of 8 CPU
+devices (``mesh=``); and one feed through the JAX package's two engines and
+the port's.
 
 Tolerances: against the port's per-stream engine atol 1e-6 in float32
 (the same weights and math; only the batch composition differs, and the
@@ -23,6 +24,7 @@ from ball_action_spotting_tpu.predict.multistream import (
     MultiStreamPredictor as JaxMultiStreamPredictor,
 )
 from ball_action_spotting_torch.data.video import SyntheticSource
+from ball_action_spotting_torch.parallel.mesh import make_mesh
 from ball_action_spotting_torch.predict.multistream import (
     DeviceStateMultiStreamPredictor,
     MultiStreamPredictor,
@@ -124,6 +126,45 @@ def test_bucket_shape_granularity_above_16():
     assert [p._bucket_shape(n) for n in (9, 17, 33, 38)] == [16, 32, 64, 64]
     p.bucket_granularity = 4
     assert [p._bucket_shape(n) for n in (9, 13, 17, 21, 29)] == [12, 16, 20, 24, 32]
+
+
+def test_multistream_mesh_matches_per_stream(ckpt_path):
+    """``mesh=``: each call's batch split over an 8-device data axis of the
+    CPU reproduces a per-stream ``StreamingPredictor`` within 1e-5; buckets
+    are floored at the axis size, warmup runs every one serving reaches,
+    and serving adds no shape."""
+    multi = engine(MultiStreamPredictor, ckpt_path, mesh=make_mesh(8, 1, ["cpu"] * 8))
+    assert multi._min_bucket == 8 and len(multi.shares) == 8
+    assert multi.warmup(2) == [8]
+    shapes = set(multi._shapes)
+    assert shapes == {("split", 1), ("fwd3d_rows", 1), ("split", 8)}  # shares of 1 row
+    collected = {}
+    for i, frame in enumerate(frames_of(6)):
+        collect(multi.predict_batch([("a", frame, i)]), collected)
+    idx, raw = _per_stream(ckpt_path, 6, False)
+    got = np.stack([collected["a"][i] for i in idx])
+    np.testing.assert_allclose(got, raw, atol=JAX_ATOL, rtol=0)
+    assert multi._shapes == shapes
+
+
+def test_bucket_shape_divides_the_mesh_data_axis():
+    """With a 6-device data axis n = 7 buckets to 12, not 8: every bucket
+    splits into equal shares."""
+    p = object.__new__(MultiStreamPredictor)
+    p.bucket_granularity = 8
+    p._min_bucket = 6
+    assert p._bucket_shape(1) == 6
+    assert p._bucket_shape(7) == 12
+    assert p._bucket_shape(13) == 18
+    p._min_bucket = 4  # 12 divides a 4-wide axis, so the sub-16 step stays
+    assert [p._bucket_shape(n) for n in (1, 3, 7, 9)] == [4, 4, 8, 12]
+    p._min_bucket = 1  # no mesh: unchanged
+    assert [p._bucket_shape(n) for n in (1, 3, 7)] == [1, 4, 8]
+
+
+def test_device_state_refuses_a_mesh(ckpt_path):
+    with pytest.raises(ValueError, match="single-chip"):
+        engine(DeviceStateMultiStreamPredictor, ckpt_path, mesh=make_mesh(2, 1, ["cpu"] * 2))
 
 
 @pytest.mark.parametrize("cls", [MultiStreamPredictor, DeviceStateMultiStreamPredictor],

@@ -9,7 +9,10 @@ this rank's rows of three seeded global batches; ``fit``: ``Trainer.fit``
 on ``multihost.BatchShard`` loaders, writing into ``OUT_DIR/rank_R``, then
 the final validation metrics against the same weights over the whole
 validation set on this rank alone; ``unequal``: a train epoch with one more
-batch on rank 1 than on rank 0. Each writes ``OUT_DIR/MODE_R.pt``.
+batch on rank 1 than on rank 0; ``tp``: the ``step`` run (drop rates 0)
+with its state split by ``parallel/sharding_rules.py::shard_state`` over
+row RANK of a (WORLD, 2) grid of the CPU, beside the same run replicated.
+Each writes ``OUT_DIR/MODE_R.pt``.
 """
 
 import sys
@@ -33,6 +36,8 @@ from ball_action_spotting_torch.ops.augment import AugmentConfig
 from ball_action_spotting_torch.ops.losses import FocalLoss
 from ball_action_spotting_torch.ops.mixup import Mixup
 from ball_action_spotting_torch.parallel import multihost
+from ball_action_spotting_torch.parallel.mesh import make_mesh
+from ball_action_spotting_torch.parallel.sharding_rules import gathered, shard_state
 from ball_action_spotting_torch.train.engine import Trainer
 from ball_action_spotting_torch.train.metrics import AveragePrecision
 from ball_action_spotting_torch.train.optim import build_optimizer
@@ -57,6 +62,7 @@ STEPS = 3
 AUG = AugmentConfig(warp_precision="highest")
 MIXUP = Mixup(mixup_alpha=0.8, cutmix_alpha=1.0, switch_prob=0.5)
 ADAM_EPS = 1e-3  # as tests/test_torch_train.py: rounding noise of zero gradients stays small
+TP_MIN_CHANNELS = 16  # the tiny arch's widths are 8 to 48: most convs split
 
 
 def global_batches():
@@ -66,13 +72,17 @@ def global_batches():
 
 
 def step_run(rank: int = 0, world: int = 1, mixup: Mixup | None = MIXUP,
-             drop: bool = True) -> dict:
+             drop: bool = True, sharded: bool = False) -> dict:
     """Three steps on this rank's rows of the global batches (all of them
-    with ``world`` 1): the losses and the final parameters."""
+    with ``world`` 1): the losses and the final parameters; ``sharded``
+    splits the state over row ``rank`` of a (``world``, 2) grid first."""
     kwargs = NN_KWARGS if drop else dict(NN_KWARGS, drop_rate=0.0, drop_path_rate=0.0)
     model = build_model("multidim_stacker", **kwargs)
     init_train_weights(model, torch.Generator().manual_seed(5))
     state = TrainState(model, build_optimizer("AdamW", {"eps": ADAM_EPS}, model))
+    if sharded:
+        state = shard_state(state, make_mesh(world, 2, ["cpu"] * (2 * world)),
+                            min_channels=TP_MIN_CHANNELS, row=rank)
     step = make_train_step(FocalLoss(alpha=-1.0, gamma=1.2), lambda count: 1e-3, 0.9,
                            augment=AUG, mixup=mixup)
     local = GLOBAL_BATCH // world
@@ -82,7 +92,9 @@ def step_run(rank: int = 0, world: int = 1, mixup: Mixup | None = MIXUP,
         aux = step(state, torch.from_numpy(frames[rows]), torch.from_numpy(targets[rows]), 7)
         losses.append(float(aux["loss"]))
     return {"losses": losses,
-            "params": {k: v.detach().clone() for k, v in model.state_dict().items()}}
+            "params": {k: v.detach().clone() for k, v in gathered(model.state_dict()).items()},
+            "ema": {k: v.detach().clone() for k, v in gathered(state.ema.state_dict()).items()},
+            "shards": sum(name.endswith(".0") for name, _ in model.named_parameters())}
 
 
 def fit_config() -> dict:
@@ -173,6 +185,9 @@ def main(argv) -> None:
     try:
         if mode == "step":
             result = step_run(rank, world)
+        elif mode == "tp":
+            result = {"tp": step_run(rank, world, drop=False, sharded=True),
+                      "replicated": step_run(rank, world, drop=False)}
         elif mode == "fit":
             result = fit_run(out_dir, rank)
         else:
