@@ -11,15 +11,17 @@ The legs, as JAX's (``n`` the device count):
 - **dp × tp** (``n`` ≥ 4, even): ``n/2`` processes, each splitting its
   state over its grid row's two devices with ``min_channels=64``
   (``parallel/sharding_rules.py``);
-- **dp × sp**: spatial partitioning is not ported; the leg prints that it
-  waits for a later slice and runs nothing;
+- **dp × sp** (``n`` ≥ 4, even): ``n/2`` processes, each cutting its rows'
+  frames into height bands over its grid row's two devices (spatial
+  partitioning, ``parallel/spatial.py``), no augmentation or mixup, as
+  JAX's leg;
 - **dp × pp** (``n`` ≥ 4, even): one process, a (``n/2``, 2) grid, the
   2-stage GPipe step with ``n_micro=2`` (``parallel/pipeline.py``);
 - **fused fold-parallel inference** (``n`` ≥ 2): ``FusedFoldsPredictor``
   with 2 folds on a 1 × min(4, ``n``) grid.
 
-Each leg that runs prints ``dryrun_multichip OK: ...`` with its grid and
-its step loss (or predictions) and seconds. The model is the slim one of
+Each leg prints ``dryrun_multichip OK: ...`` with its grid and its step
+loss (or predictions) and seconds. The model is the slim one of
 JAX's dryrun (the tiny encoder at 32×48, the flagship's block kinds and
 split forward), in bfloat16 on the cards and float32 on the CPU, from
 seeded weights. ``--device cpu`` lays the grids over the CPU device
@@ -45,9 +47,10 @@ from ball_action_spotting_torch.data.video import SyntheticSource
 from ball_action_spotting_torch.models import build_model, init_train_weights
 from ball_action_spotting_torch.ops.losses import FocalLoss
 from ball_action_spotting_torch.parallel import multihost
-from ball_action_spotting_torch.parallel.mesh import make_mesh
+from ball_action_spotting_torch.parallel.mesh import make_mesh, spatial_bands
 from ball_action_spotting_torch.parallel.pipeline import make_pp_train_step, place_stages
 from ball_action_spotting_torch.parallel.sharding_rules import shard_state
+from ball_action_spotting_torch.parallel.spatial import bands_of
 from ball_action_spotting_torch.predict.fused import FusedFoldsPredictor
 from ball_action_spotting_torch.predict.streaming import iter_source_frames
 from ball_action_spotting_torch.train.checkpoint import save_checkpoint
@@ -125,8 +128,9 @@ def _free_port() -> int:
 
 def _train_worker(rank: int, world: int, port: int, kind: str, devices: list,
                   queue) -> None:
-    """One process of the dp or dp × tp leg: its grid row, its rows of the
-    global batch, one data-parallel step; rank 0 reports the loss."""
+    """One process of the dp, dp × tp or dp × sp leg: its grid row, its
+    rows of the global batch (dp × sp: cut into height bands over the row),
+    one data-parallel step; rank 0 reports the loss."""
     n_model = len(devices) // world
     row = devices[rank * n_model:(rank + 1) * n_model]
     cuda = row[0].type == "cuda"
@@ -143,9 +147,12 @@ def _train_worker(rank: int, world: int, port: int, kind: str, devices: list,
                                 min_channels=TP_MIN_CHANNELS, row=rank)
         frames, targets = global_batch(2 * world)
         rows = slice(2 * rank, 2 * rank + 2)
+        local = torch.from_numpy(frames[rows])
+        x = (bands_of(local, *spatial_bands(make_mesh(world, n_model, devices), local.shape[2],
+                                            rank), axis=2)
+             if kind == "dp x sp" else local.to(row[0]))
         aux = make_train_step(**_step_fn())(
-            state, torch.from_numpy(frames[rows]).to(row[0]),
-            torch.from_numpy(targets[rows]).to(row[0]), SEED)
+            state, x, torch.from_numpy(targets[rows]).to(row[0]), SEED)
         loss = float(aux["loss"])
         if rank == 0:
             queue.put(loss)
@@ -154,7 +161,8 @@ def _train_worker(rank: int, world: int, port: int, kind: str, devices: list,
 
 
 def process_leg(kind: str, devices: list, world: int) -> float:
-    """Run ``world`` processes of the dp or dp × tp leg; rank 0's loss."""
+    """Run ``world`` processes of the dp, dp × tp or dp × sp leg; rank 0's
+    loss."""
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     port = _free_port()
@@ -222,8 +230,7 @@ def fused_leg(devices: list) -> tuple[int, int]:
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> list[dict]:
-    """Every leg over ``n_devices`` devices; returns a row per leg (``ok``
-    False for a leg that waits)."""
+    """Every leg over ``n_devices`` devices; returns a row per leg."""
     t_start = time.perf_counter()
     devices = devices_for(n_devices, device)
     legs = [("dp", n_devices, 1)]
@@ -234,11 +241,6 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> list[dict]:
     for kind, n_data, n_model in legs:
         t_leg = time.perf_counter()
         mesh = f"mesh (data={n_data}, model={n_model}) [{kind}]"
-        if kind == "dp x sp":
-            print(f"dryrun_multichip WAITS: {mesh}: spatial partitioning is not ported yet "
-                  "(queued for slice 13 of the port); no step ran", flush=True)
-            rows.append({"leg": kind, "ok": False})
-            continue
         loss = pp_leg(devices) if kind == "dp x pp" else process_leg(kind, devices, n_data)
         if not np.isfinite(loss):
             raise RuntimeError(f"the {kind} leg's step loss is {loss}")

@@ -25,6 +25,14 @@
 // each writes its f32 partial sums to a scratch (splits, b, c), and a second
 // launch sums the splits in order and takes the root. No float atomics: the
 // result is the same from run to run.
+//
+// root = 0 is the band-partial launch of spatial partitioning: out[b, c] is
+// the f32 sum of max(x, eps)^p over the band's H*W positions, with no mean
+// and no root (the same split sums and the same in-order finish, stopping
+// before the root). The caller adds the bands' sums in band order and takes
+// (sum / (H*W))^(1/p) itself. At the flagship's two-band head shapes,
+// (1280, 12, 40, 256) and (1280, 11, 40, 256) bf16, the bound is the bytes:
+// 0.0939 and 0.0861 ms at 3.35 TB/s.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -97,12 +105,13 @@ template <int kVec> struct Load<__half, kVec> {
 
 // grid: b * tiles * splits blocks, block (split, tile, b) at
 // ((b * tiles + tile) * splits + split); kWarps warps of 32 lanes.
-// splits == 1 writes y to out; else the sums to partial[split, b, c].
+// splits == 1 writes y (root 1) or the sum (root 0) to out; else the sums
+// to partial[split, b, c].
 template <typename T, int kVec>
 __global__ void __launch_bounds__(kWarps * 32)
 gem_partial_kernel(const T* __restrict__ x, const float* __restrict__ p_ptr,
                    float* __restrict__ out, float* __restrict__ partial, int b_len,
-                   int hw, int c, int splits, float eps) {
+                   int hw, int c, int splits, int root, float eps) {
   constexpr int kTile = 32 * kVec;
   __shared__ float sums[kWarps][kTile];
   const int tiles = (c + kTile - 1) / kTile;
@@ -151,46 +160,47 @@ gem_partial_kernel(const T* __restrict__ x, const float* __restrict__ p_ptr,
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) sum += sums[w][j];
     if (splits == 1) {
-      out[(size_t)b * c + cj] = ex2(lg2(sum / (float)hw) / p);
+      out[(size_t)b * c + cj] = root ? ex2(lg2(sum / (float)hw) / p) : sum;
     } else {
       partial[((size_t)split * b_len + b) * c + cj] = sum;
     }
   }
 }
 
-// y[b, c] from the splits' partial sums, added in split order.
+// y[b, c] (root 1) or the sum (root 0) from the splits' partial sums, added
+// in split order.
 __global__ void __launch_bounds__(kFinishThreads)
 gem_finish_kernel(const float* __restrict__ partial, const float* __restrict__ p_ptr,
-                  float* __restrict__ out, int64_t bc, int hw, int splits) {
+                  float* __restrict__ out, int64_t bc, int hw, int splits, int root) {
   const int64_t i = (int64_t)blockIdx.x * kFinishThreads + threadIdx.x;
   if (i >= bc) return;
   float sum = 0.f;
   for (int s = 0; s < splits; ++s) sum += partial[s * bc + i];
-  out[i] = ex2(lg2(sum / (float)hw) / __ldg(p_ptr));
+  out[i] = root ? ex2(lg2(sum / (float)hw) / __ldg(p_ptr)) : sum;
 }
 
 template <typename T, int kVec>
 int launch(const void* x, const float* p, float* out, float* partial, int b, int hw, int c,
-           int splits, float eps, cudaStream_t stream) {
+           int splits, int root, float eps, cudaStream_t stream) {
   constexpr int kTile = 32 * kVec;
   if (kVec > 1 && (c % kVec || (uintptr_t)x % 16)) return (int)cudaErrorInvalidValue;
   const int64_t blocks = (int64_t)b * ((c + kTile - 1) / kTile) * splits;
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   gem_partial_kernel<T, kVec><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
-      (const T*)x, p, out, partial, b, hw, c, splits, eps);
+      (const T*)x, p, out, partial, b, hw, c, splits, root, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const int64_t bc = (int64_t)b * c;
   gem_finish_kernel<<<(unsigned)((bc + kFinishThreads - 1) / kFinishThreads),
-                      kFinishThreads, 0, stream>>>(partial, p, out, bc, hw, splits);
+                      kFinishThreads, 0, stream>>>(partial, p, out, bc, hw, splits, root);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int kWideVec>
 int launch_width(const void* x, const float* p, float* out, float* partial, int b, int hw,
-                 int c, int splits, float eps, int wide, cudaStream_t stream) {
-  return wide ? launch<T, kWideVec>(x, p, out, partial, b, hw, c, splits, eps, stream)
-              : launch<T, 1>(x, p, out, partial, b, hw, c, splits, eps, stream);
+                 int c, int splits, int root, float eps, int wide, cudaStream_t stream) {
+  return wide ? launch<T, kWideVec>(x, p, out, partial, b, hw, c, splits, root, eps, stream)
+              : launch<T, 1>(x, p, out, partial, b, hw, c, splits, root, eps, stream);
 }
 
 }  // namespace
@@ -199,9 +209,10 @@ int launch_width(const void* x, const float* p, float* out, float* partial, int 
 // p one float on the device, out (b, c) float32. wide 1 takes the 16-byte
 // loads (c * itemsize % 16 == 0 and x 16-byte aligned). splits > 1 splits
 // hw over that many blocks per channel tile and needs partial, a float32
-// scratch of (splits, b, c); it is two launches. Returns cudaGetLastError().
+// scratch of (splits, b, c); it is two launches. root 1 writes y, root 0
+// the band-partial sums of max(x, eps)^p. Returns cudaGetLastError().
 extern "C" int gem_forward(const void* x, const float* p, float* out, float* partial, int b,
-                           int hw, int c, float eps, int dtype, int wide, int splits,
+                           int hw, int c, float eps, int dtype, int wide, int splits, int root,
                            void* stream) {
   if (b <= 0 || hw <= 0 || c <= 0 || splits <= 0 || splits > hw ||
       (splits > 1 && partial == nullptr)) {
@@ -210,12 +221,12 @@ extern "C" int gem_forward(const void* x, const float* p, float* out, float* par
   cudaStream_t s = (cudaStream_t)stream;
   switch (dtype) {
     case 0:
-      return launch_width<float, 4>(x, p, out, partial, b, hw, c, splits, eps, wide, s);
+      return launch_width<float, 4>(x, p, out, partial, b, hw, c, splits, root, eps, wide, s);
     case 1:
-      return launch_width<__nv_bfloat16, 8>(x, p, out, partial, b, hw, c, splits, eps, wide,
-                                            s);
+      return launch_width<__nv_bfloat16, 8>(x, p, out, partial, b, hw, c, splits, root, eps,
+                                            wide, s);
     case 2:
-      return launch_width<__half, 8>(x, p, out, partial, b, hw, c, splits, eps, wide, s);
+      return launch_width<__half, 8>(x, p, out, partial, b, hw, c, splits, root, eps, wide, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

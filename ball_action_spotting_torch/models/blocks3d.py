@@ -3,7 +3,10 @@
 the pointwise convs are matmuls over the last axis, and the depthwise conv
 and GeM take channels-last input, which is what their kernels read
 contiguously. BN here uses torch defaults (eps 1e-5), unlike the encoder's
-TF-ported 1e-3."""
+TF-ported 1e-3. Each module also takes its input cut into height bands
+(``parallel/spatial.py``, axis 2 of (N, T, H, W, C), axis 1 of GeM's
+(B, H, W, C)): the depthwise conv on halo windows, the SE mean and GeM as
+sums over the bands."""
 
 from __future__ import annotations
 
@@ -14,8 +17,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ball_action_spotting_torch.models.effnetv2 import BatchNormAct, DropPath, PointwiseConv
-from ball_action_spotting_torch.ops.dwconv3d import dwconv3d, dwconv3d_grouped_conv
-from ball_action_spotting_torch.ops.gem import gem_pool
+from ball_action_spotting_torch.ops.dwconv3d import (
+    dwconv3d,
+    dwconv3d_bands,
+    dwconv3d_grouped_conv,
+)
+from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_bands
+from ball_action_spotting_torch.parallel.spatial import Bands, band_sum
 
 
 class DepthwiseConv3d(nn.Module):
@@ -29,8 +37,10 @@ class DepthwiseConv3d(nn.Module):
         self.use_kernel = use_kernel
         self.weight = nn.Parameter(torch.empty(features, 1, 3, 3, 3))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
         kernel = self.weight.to(x.dtype).permute(2, 3, 4, 1, 0)  # (3, 3, 3, 1, C)
+        if isinstance(x, Bands):
+            return dwconv3d_bands(x, kernel, self.use_kernel and not self.training)
         if self.use_kernel and not self.training:
             return dwconv3d(x, kernel)
         return dwconv3d_grouped_conv(x, kernel)
@@ -47,10 +57,16 @@ class SqueezeExcite3d(nn.Module):
         self.conv_reduce = PointwiseConv(channels, rd, ndim=3, bias=True)
         self.conv_expand = PointwiseConv(rd, channels, ndim=3, bias=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
+        if isinstance(x, Bands):  # the mean over every band's rows
+            _, t, h, w, _ = x.shape
+            return x.map_with(band_sum(x, (1, 2, 3)), lambda part, total: part * torch.sigmoid(
+                self._excite((total / (t * h * w)).to(part.dtype)[:, None, None, None])))
         se = x.mean(dim=(1, 2, 3), keepdim=True)
-        se = self.conv_expand(self.act(self.conv_reduce(se)))
-        return x * torch.sigmoid(se)
+        return x * torch.sigmoid(self._excite(se))
+
+    def _excite(self, se: torch.Tensor) -> torch.Tensor:
+        return self.conv_expand(self.act(self.conv_reduce(se)))
 
 
 class InvertedResidual3d(nn.Module):
@@ -85,12 +101,15 @@ class InvertedResidual3d(nn.Module):
 class GeneralizedMeanPooling(nn.Module):
     """GeM pooling ``mean(clamp(x, eps)^p)^(1/p)`` over (H, W) with a
     learnable scalar ``p``: (B, H, W, C) → (B, C) float32. Always through
-    ``ops/gem.py`` (the kernel on a CUDA tensor)."""
+    ``ops/gem.py`` (the kernel on a CUDA tensor); bands through
+    ``gem_pool_bands``, the pooled (B, C) on the first band's device."""
 
     def __init__(self, p_init: float = 3.0, eps: float = 1e-6):
         super().__init__()
         self.eps = eps
         self.p = nn.Parameter(torch.full((1,), p_init))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor | Bands) -> torch.Tensor:
+        if isinstance(x, Bands):
+            return gem_pool_bands(x, self.p, self.eps)
         return gem_pool(x, self.p, self.eps)

@@ -12,6 +12,14 @@ the extra pixel of a stride-2 conv at the bottom/right, and BatchNorm eps
 batch statistics and the residual blocks drop paths. ``stem_space_to_depth``
 is the JAX package's space-to-depth stem (``stem_kernel_to_s2d`` maps a
 trained stem onto it); the int8 convs of the JAX package are not ported yet.
+
+Every module also takes its input cut into height bands
+(``parallel/spatial.py::Bands``, spatial partitioning) and returns bands:
+a k×k conv (and the s2d stem) runs on each band's window, its padding taken
+from the global height; the 1×1 convs, BN's normalize and the activations
+run band by band; the SE means and the train-mode BN statistics are sums
+over the bands (``band_sum``); drop path draws one mask per sample for all
+bands. The unbanded path is unchanged.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ball_action_spotting_torch.parallel.multihost import in_process_group
+from ball_action_spotting_torch.parallel.spatial import Bands, add_in_order, band_sum, row_op
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,7 +186,12 @@ def space_to_depth(x: torch.Tensor) -> torch.Tensor:
     pixel (2i + dy, 2j + dx) of channel c: the JAX stem's
     ``reshape(b, h/2, 2, w/2, 2, c).transpose(0, 1, 3, 2, 4, 5)`` order
     (``F.pixel_unshuffle`` orders (c, dy, dx) instead). An odd H or W
-    raises, as JAX's reshape does."""
+    raises, as JAX's reshape does. On bands it is an op of kernel 2, stride
+    2 and no pad along the height (``row_op``)."""
+    if isinstance(x, Bands):
+        if x.height % 2:
+            raise ValueError(f"the space-to-depth stem needs an even height, got {x.height}")
+        return row_op(x, 2, 2, 0, x.height // 2, space_to_depth)
     b, c, h, w = x.shape
     if h % 2 or w % 2:
         raise ValueError(f"the space-to-depth stem needs an even height and width, got {h}x{w}")
@@ -202,16 +216,24 @@ class Conv2dSame(nn.Module):
         self.groups = groups
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kernel, kernel))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
         k = self.weight.shape[-1]
-        top, bottom = same_pad(x.shape[-2], k, self.stride)
+        if isinstance(x, Bands):  # the height's SAME pad is the global height's
+            top = same_pad(x.height, k, self.stride)[0]
+            return row_op(x, k, self.stride, top, -(-x.height // self.stride),
+                          lambda window: self._conv(window, (0, 0)))
+        return self._conv(x, same_pad(x.shape[-2], k, self.stride))
+
+    def _conv(self, x: torch.Tensor, rows_pad: tuple[int, int]) -> torch.Tensor:
+        k = self.weight.shape[-1]
+        top, bottom = rows_pad
         left, right = same_pad(x.shape[-1], k, self.stride)
         if (top, left) == (bottom, right):
             padding = (top, left)
         else:  # asymmetric: F.conv2d pads symmetrically, so pad explicitly
             x = F.pad(x, (left, right, top, bottom))
             padding = (0, 0)
-        return F.conv2d(x, self.weight.to(x.dtype), None, self.stride, padding,
+        return F.conv2d(x, self.weight.to(x.device, x.dtype), None, self.stride, padding,
                         groups=self.groups)
 
 
@@ -224,9 +246,11 @@ class PointwiseConv(nn.Module):
         self.weight = nn.Parameter(torch.empty((out_ch, in_ch) + (1,) * ndim))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.linear(x, self.weight.flatten(1).to(x.dtype), bias)
+    def forward(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
+        if isinstance(x, Bands):
+            return x.map(self.forward)
+        bias = None if self.bias is None else self.bias.to(x.device, x.dtype)
+        return F.linear(x, self.weight.flatten(1).to(x.device, x.dtype), bias)
 
 
 class BatchNormAct(nn.Module):
@@ -269,21 +293,54 @@ class BatchNormAct(nn.Module):
             return (-1,)
         return (-1,) + (1,) * (x.dim() - 2)
 
+    def _dims(self, ndim: int) -> tuple[int, ...]:
+        """The axes the statistics reduce: all but the channel axis."""
+        return tuple(range(ndim - 1)) if self.channels_last else (0,) + tuple(range(2, ndim))
+
     def _batch_stats(self, xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        dims = (tuple(range(xf.dim() - 1)) if self.channels_last
-                else (0,) + tuple(range(2, xf.dim())))
+        dims = self._dims(xf.dim())
         if in_process_group():
             mean, var = _global_batch_stats(xf, dims)
         else:
             mean = xf.mean(dims)
             var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        self._update_running(mean, var)
         return mean, var
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _band_stats(self, xf: Bands) -> tuple[torch.Tensor, torch.Tensor]:
+        """The batch statistics of float32 bands, on the first band's
+        device: each band's sums of x and x², added in band order, then
+        (under a process group) over the processes, against the global
+        count."""
+        dims = self._dims(len(xf.shape))
+        sums = add_in_order([torch.stack([t.sum(dims), (t * t).sum(dims)]) for t in xf.parts],
+                            xf.devices[0])
+        count = math.prod(xf.shape[d] for d in dims)
+        if in_process_group():
+            sums = _AllReduceSum.apply(sums)
+            count *= dist.get_world_size()
+        mean = sums[0] / count
+        var = (sums[1] / count - mean * mean).clamp_min(0.0)
+        self._update_running(mean, var)
+        return mean, var
+
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            m = self.momentum
+            dev = self.running_mean.device
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean.to(dev))
+            self.running_var.copy_(m * self.running_var + (1 - m) * var.to(dev))
+
+    def _normalize(self, xf: torch.Tensor, mean: torch.Tensor,
+                   var: torch.Tensor) -> torch.Tensor:
+        shape, dev = self._shape(xf), xf.device
+        mul = torch.rsqrt(var.to(dev) + self.eps) * self.weight.to(dev)
+        y = (xf - mean.to(dev).view(shape)) * mul.view(shape)
+        return y + self.bias.to(dev).view(shape)
+
+    def forward(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
+        if isinstance(x, Bands):
+            return self._forward_bands(x)
         shape = self._shape(x)
         if self.folded:
             if self.training:
@@ -295,10 +352,21 @@ class BatchNormAct(nn.Module):
                 mean, var = self._batch_stats(xf)
             else:
                 mean, var = self.running_mean, self.running_var
-            mul = torch.rsqrt(var + self.eps) * self.weight
-            y = (xf - mean.view(shape)) * mul.view(shape)
-            x = (y + self.bias.view(shape)).to(x.dtype)
+            x = self._normalize(xf, mean, var).to(x.dtype)
         return x if self.act is None else self.act(x)
+
+    def _forward_bands(self, x: Bands) -> Bands:
+        """Band by band, with the statistics of every band in training."""
+        if self.folded:
+            if self.training:
+                raise ValueError("a folded BatchNormAct is inference-only")
+            x = x.map(lambda t: t + self.bias.to(t.device, t.dtype).view(self._shape(t)))
+        else:
+            xf = x.map(lambda t: t.float())
+            mean, var = (self._band_stats(xf) if self.training
+                         else (self.running_mean, self.running_var))
+            x = xf.map(lambda t: self._normalize(t, mean, var).to(x.dtype))
+        return x if self.act is None else x.map(self.act)
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -344,11 +412,15 @@ class DropPath(nn.Module):
         self.generator: Optional[torch.Generator] = None
         self.shard: Optional[tuple[int, int]] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        shape = (x.shape[0],) + (1,) * (len(x.shape) - 1)
+        if isinstance(x, Bands):  # one mask per sample, for every band
+            mask = random_keep_mask(self.generator, shape, keep, x.devices[0], self.shard)
+            return x.map(lambda t: torch.where(mask.to(t.device), t / keep,
+                                               torch.zeros_like(t)))
         mask = random_keep_mask(self.generator, shape, keep, x.device, self.shard)
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
@@ -411,13 +483,21 @@ class SqueezeExcite2d(nn.Module):
         self.conv_reduce = nn.Conv2d(channels, rd_channels, 1, bias=True)
         self.conv_expand = nn.Conv2d(rd_channels, channels, 1, bias=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
+        if isinstance(x, Bands):  # the mean over every band's rows
+            n = x.height * x.shape[3]
+            return x.map_with(band_sum(x, (2, 3)), lambda t, total: t * torch.sigmoid(
+                self._excite((total / n).to(t.dtype)[:, :, None, None])))
         se = x.mean(dim=(2, 3), keepdim=True)
-        dt = x.dtype
-        se = F.conv2d(se, self.conv_reduce.weight.to(dt), self.conv_reduce.bias.to(dt))
+        return x * torch.sigmoid(self._excite(se))
+
+    def _excite(self, se: torch.Tensor) -> torch.Tensor:
+        dev, dt = se.device, se.dtype
+        se = F.conv2d(se, self.conv_reduce.weight.to(dev, dt),
+                      self.conv_reduce.bias.to(dev, dt))
         se = self.act(se)
-        se = F.conv2d(se, self.conv_expand.weight.to(dt), self.conv_expand.bias.to(dt))
-        return x * torch.sigmoid(se)
+        return F.conv2d(se, self.conv_expand.weight.to(dev, dt),
+                        self.conv_expand.bias.to(dev, dt))
 
 
 class ConvBnAct(nn.Module):

@@ -15,6 +15,12 @@ keep the JAX layouts at their boundaries:
 ``dtype`` is the compute dtype (bfloat16 on the card, float32 for parity
 tests); parameters are stored in float32 and cast where they are used. GeM
 returns float32, so the classifier runs in float32.
+
+Each method also takes its input cut into height bands
+(``parallel/spatial.py::Bands``, spatial partitioning) and returns bands,
+with the height at the same place in each layout; the head pools the bands
+(``gem_pool_bands``) and runs dropout and the classifier once, on the first
+band's device.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from ball_action_spotting_torch.models.effnetv2 import (
     EfficientNetV2Features,
     PointwiseConv,
 )
+from ball_action_spotting_torch.parallel.spatial import Bands
 
 _ACTS: dict[str, Callable] = {
     "silu": F.silu,
@@ -125,15 +132,19 @@ class MultiDimStacker(nn.Module):
     def num_features(self) -> int:
         return self.num_3d_stack_proj * self.num_stacks
 
-    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+    def _encode(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
         # (B, stack, H, W) → (B, h, w, C3d) channels-last
         x = self.conv2d_encoder(x).permute(0, 2, 3, 1)
         return self.conv2d_projection_bn(self.conv2d_projection_conv(x))
 
-    def forward_2d(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_2d(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
         """(B, T, H, W) frames → (B, T/stack, h, w, C3d) per-stack features."""
         b, t, h, w = x.shape
         num_stacks = t // self.stack_size
+        if isinstance(x, Bands):
+            x = self._encode(x.map(lambda p: p.to(self.dtype).reshape(
+                b * num_stacks, self.stack_size, p.shape[2], w)))
+            return x.map(lambda p: p.reshape((b, num_stacks) + p.shape[1:]), axis=2)
         x = x.to(self.dtype).reshape(b * num_stacks, self.stack_size, h, w)
         x = self._encode(x)
         return x.reshape((b, num_stacks) + x.shape[1:])
@@ -143,21 +154,31 @@ class MultiDimStacker(nn.Module):
         parameters and values as ``forward_2d``; the permute is a view, so
         the encoder sees channels-last memory."""
         assert x.shape[-1] == self.stack_size
+        if isinstance(x, Bands):
+            return self._encode(x.map(lambda p: p.to(self.dtype)).permute(0, 3, 1, 2))
         return self._encode(x.to(self.dtype).permute(0, 3, 1, 2))
 
-    def _blocks_3d(self, x: torch.Tensor) -> torch.Tensor:
+    def _blocks_3d(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
         # (B, T', h, w, C) → per-stack projected (B·T', h, w, proj)
         b, t, h, w, c = x.shape
         assert c == self.num_3d_features and t == self.num_stacks
         for i in range(self.num_3d_blocks):
             x = getattr(self, f"conv3d_encoder_{i}")(x)
-        x = x.reshape(b * t, h, w, c)
+        if isinstance(x, Bands):
+            x = x.map(lambda p: p.reshape(b * t, p.shape[2], w, c), axis=1)
+        else:
+            x = x.reshape(b * t, h, w, c)
         return self.conv3d_projection_bn(self.conv3d_projection_conv(x))
 
-    def forward_3d(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_3d(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
         """(B, T', h, w, C) stack features → (B, h, w, T'·proj) fused map,
         stacks concatenated on channels stack-major."""
         b, t, h, w, _ = x.shape
+        proj = self.num_3d_stack_proj
+        if isinstance(x, Bands):
+            return self._blocks_3d(x).map(lambda p: p.reshape(
+                b, t, p.shape[1], w, proj).permute(0, 2, 3, 1, 4).reshape(
+                b, p.shape[1], w, t * proj))
         x = self._blocks_3d(x).reshape(b, t, h, w, self.num_3d_stack_proj)
         return x.permute(0, 2, 3, 1, 4).reshape(b, h, w, t * self.num_3d_stack_proj)
 
@@ -172,8 +193,10 @@ class MultiDimStacker(nn.Module):
         x = self.global_pool(self._blocks_3d(x))  # (b·t, proj) float32
         return self.classifier(self.dropout(x.reshape(b, t * self.num_3d_stack_proj)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor | Bands) -> torch.Tensor:
         feats = self.forward_2d(x)
+        if isinstance(feats, Bands):  # logits on the first band's device
+            return self.forward_head(self.forward_3d(feats))
         # a pipeline-placed model (parallel/pipeline.py::place_stages) holds
         # forward_3d's modules on another device than forward_2d's; the
         # logits come back to the input's device, beside its targets

@@ -19,6 +19,12 @@ tap column), sliced off the output. A width whose three staged rows do not
 fit a block's shared memory (``kernel_stages``) goes to
 ``dwconv3d_grouped_conv`` instead, as the JAX package goes to its lax conv
 when a slice does not fit VMEM.
+
+``dwconv3d_bands`` runs either route on an input cut into height bands
+(spatial partitioning, ``parallel/spatial.py``): each band's window of one
+halo row a side, clipped at the global edges so that the route's own SAME
+zeros stand there, with the halo rows cropped from the output. The route
+check reads W only, which banding leaves whole.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ball_action_spotting_torch.ops._cuda import CudaKernel, stream_handle
+from ball_action_spotting_torch.parallel.spatial import Bands, halo_op
 
 KERNEL = CudaKernel(
     "dwconv3d", "dwconv3d_forward",
@@ -153,3 +160,16 @@ def dwconv3d_grouped_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor
     weight = kernel.permute(4, 3, 0, 1, 2).to(x.dtype)  # (C, 1, 3, 3, 3)
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight, padding=1, groups=c)
     return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+def dwconv3d_bands(x: Bands, kernel: torch.Tensor, use_kernel: bool) -> Bands:
+    """The depthwise SAME conv of (N, T, H, W, C) bands cut on axis 2:
+    ``dwconv3d`` (``use_kernel``) or ``dwconv3d_grouped_conv`` on each
+    band's window ``[a − 1, b + 1)`` clipped to ``[0, H)``, its halo rows
+    cropped; an empty band runs nothing (the kernel refuses an empty
+    tensor). ``kernel`` is copied to each band's device."""
+    if x.axis != 2 or len(x.shape) != 5:
+        raise ValueError(f"dwconv3d_bands expects (N, T, H, W, C) bands cut on axis 2, got "
+                         f"shape {x.shape} cut on axis {x.axis}")
+    conv = dwconv3d if use_kernel else dwconv3d_grouped_conv
+    return halo_op(x, 1, lambda w: conv(w, kernel.to(w.device)))

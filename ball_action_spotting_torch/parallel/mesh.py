@@ -13,17 +13,19 @@ global-batch BatchNorm statistics that GSPMD gives JAX come from an
 all-reduce (``models/effnetv2.py::BatchNormAct``).
 
 The model axis holds the two stages of a pipeline-parallel train step
-(``parallel/pipeline.py``, one process) and the slices of a tensor-parallel
-training state (``parallel/sharding_rules.py``, one process per grid row);
-``model_devices(row)`` lists a row's. ``batch_slices`` splits a batch over
-the data axis, the port's ``batch_sharding``.
+(``parallel/pipeline.py``, one process), the slices of a tensor-parallel
+training state (``parallel/sharding_rules.py``, one process per grid row)
+and the height bands of spatial partitioning (``parallel/spatial.py``:
+``spatial_bands`` gives a data row's devices and cuts, the port's
+``spatial_frames_sharding``); ``model_devices(row)`` lists a row's.
+``batch_slices`` splits a batch over the data axis, the port's
+``batch_sharding``.
 
 A device may repeat in the grid (``make_mesh(2, 1, ["cuda:0", "cuda:0"])``),
 so that one card, or the CPU, runs a 2×1 or 1×2 grid.
 
 Not ported: ``replicated``, ``shard_batch`` and ``replicate_state``, which
-place JAX arrays (the port's callers move tensors with ``.to(device)``),
-and ``spatial_frames_sharding``, which waits for spatial partitioning.
+place JAX arrays (the port's callers move tensors with ``.to(device)``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from ball_action_spotting_torch.parallel.spatial import balanced_cuts
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -65,6 +69,16 @@ class DeviceMesh:
                              f"{n_data}")
         share = n // n_data
         return [slice(i * share, (i + 1) * share) for i in range(n_data)]
+
+
+def spatial_bands(mesh: DeviceMesh, rows: int,
+                  row: int = 0) -> tuple[list[torch.device], tuple[int, ...]]:
+    """Spatial partitioning's cut of ``rows`` frame rows over data row
+    ``row``'s model-axis devices: (the devices, the n + 1 global row cuts).
+    Band i holds ``process_slice(rows, i, n_model)``; bands past ``rows``
+    are empty."""
+    devices = mesh.model_devices(row)
+    return devices, balanced_cuts(rows, len(devices))
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,

@@ -29,9 +29,11 @@ stack map; the chunked program normalizes in the compute dtype and pools
 per stack.
 
 ``ChunkedVideoPredictor(mesh=...)`` spreads each chunk over the data axis
-of a device grid (``parallel/mesh.py``). Every engine reads a ``.ckpt`` or
-a reference argus ``.pth`` and takes ``s2d_stem`` (the space-to-depth stem,
-exact). Not ported yet: the ``spatial`` option and int8 convs.
+of a device grid (``parallel/mesh.py``); ``spatial=True`` also cuts the
+frame height into bands over each data row's model-axis devices
+(``parallel/spatial.py``). Every engine reads a ``.ckpt`` or a reference
+argus ``.pth`` and takes ``s2d_stem`` (the space-to-depth stem, exact). Not
+ported yet: int8 convs.
 """
 
 from __future__ import annotations
@@ -49,8 +51,9 @@ from ball_action_spotting_torch.device import resolve_device
 from ball_action_spotting_torch.models import build_model
 from ball_action_spotting_torch.models.effnetv2 import stem_weight_to_s2d
 from ball_action_spotting_torch.models.fold_bn import fold_bn_state_dict
-from ball_action_spotting_torch.parallel.mesh import make_mesh
+from ball_action_spotting_torch.parallel.mesh import make_mesh, spatial_bands
 from ball_action_spotting_torch.parallel.multihost import process_slice
+from ball_action_spotting_torch.parallel.spatial import Bands, bands_of, cat_bands
 from ball_action_spotting_torch.predict.host_loop import (  # noqa: F401  (re-exported)
     iter_source_frames,
     pad_frame,
@@ -252,23 +255,41 @@ class ChunkedVideoPredictor(PredictorBase):
     device, and equal one device's. The model is copied to each distinct
     device; each device's work is launched on its own current stream.
 
-    The chunk programs take the shares as an argument (``shares=None`` is
-    this engine's own: ``[(device, model)]`` per data device), so that the
-    fused ensemble (``predict/fused.py``) runs the same single-fold programs
-    over its folds' models. ``spatial=True``, spatial partitioning, is not
-    ported yet and raises."""
+    The frame- and feature-carry chunk programs take the shares as an
+    argument (``shares=None`` is this engine's own: ``[(device, model)]``
+    per data device), so that the fused ensemble (``predict/fused.py``)
+    runs the same single-fold programs over its folds' models.
 
-    def __init__(self, *args, chunk_size: int = 128, carry_features: bool = True,
+    ``spatial=True`` (spatial partitioning, which needs ``mesh``) runs the
+    frame carry only: each data row's share of the chunk is cut into height
+    bands over that row's model-axis devices, each band's rows uploaded
+    straight from the host to its device, and the model runs on the bands
+    (``parallel/spatial.py``: halo windows at every k×k conv, cross-band
+    sums at the SE blocks and GeM). The carry tail is banded over the first
+    row's devices; the windows over the stack axis are taken band by band;
+    the predictions are gathered in order on the first device.
+    ``carry_features`` defaults to ``not spatial``, and ``True`` with
+    ``spatial`` is refused, as in the JAX package."""
+
+    def __init__(self, *args, chunk_size: int = 128, carry_features: bool | None = None,
                  mesh=None, spatial: bool = False, **kwargs):
-        if spatial:
-            raise NotImplementedError(
-                "spatial=True (frame height over the mesh's model axis) is not ported yet; "
-                "it is queued for the next slice of the port")
+        if spatial and mesh is None:
+            raise ValueError(
+                "spatial=True requires mesh= (spatial partitioning cuts the frame height "
+                "into bands over the mesh's 'model' axis)")
+        if carry_features and spatial:
+            raise ValueError(
+                "carry_features=True is not supported with spatial=True (the carried "
+                "feature tail would need the same height partitioning as the frames; use "
+                "one or the other)")
+        if carry_features is None:
+            carry_features = not spatial
         if mesh is not None:
             kwargs["device"] = mesh.data_devices()[0]
         super().__init__(*args, **kwargs)
         self.chunk_size = chunk_size
         self.carry_features = carry_features
+        self.spatial = spatial
         self.mesh = mesh or make_mesh(1, 1, [self.device])
         m, step = self.model_stack_size, self.frame_stack_step
         self.stack_span = m * step
@@ -296,19 +317,28 @@ class ChunkedVideoPredictor(PredictorBase):
             stacks = torch.cat([stacks, stacks.flip(2)], dim=0)
         return stacks.to(self.model.dtype) / 255.0
 
-    def encode_2d(self, x: torch.Tensor, model=None) -> torch.Tensor:
+    def encode_2d(self, x: torch.Tensor | Bands, model=None) -> torch.Tensor | Bands:
         """Normalized (tta·batch, H, W, m) stacks → (tta, batch, h, w, C)."""
         feats = (model or self.model).forward_2d_nhwc(x)
+        if isinstance(feats, Bands):
+            return feats.map(lambda f: f.reshape(  # an empty band has no -1
+                (self.num_tta, f.shape[0] // self.num_tta) + f.shape[1:]), axis=2)
         return feats.reshape((self.num_tta, -1) + feats.shape[1:])
 
-    def head_from_feats(self, feats: torch.Tensor, model=None) -> torch.Tensor:
-        """(tta, n + (S-1)·span, h, w, C) stack features → (n, classes)
-        sigmoid predictions; window p's k-th stack is feats[p + k·span]."""
+    def _windows(self, feats: torch.Tensor) -> torch.Tensor:
+        """(tta, n + (S-1)·span, h, w, C) → (tta·n, S, h, w, C), tta-major."""
         span = self.stack_span
         n = feats.shape[1] - self._feat_tail
         windows = torch.stack(
             [feats[:, k * span : k * span + n] for k in range(self.num_stacks)], dim=2)
-        flat = windows.reshape((self.num_tta * n,) + windows.shape[2:])  # tta-major
+        return windows.reshape((self.num_tta * n,) + windows.shape[2:])
+
+    def head_from_feats(self, feats: torch.Tensor | Bands, model=None) -> torch.Tensor:
+        """(tta, n + (S-1)·span, h, w, C) stack features → (n, classes)
+        sigmoid predictions; window p's k-th stack is feats[p + k·span].
+        Bands take their windows band by band."""
+        n = feats.shape[1] - self._feat_tail
+        flat = feats.map(self._windows) if isinstance(feats, Bands) else self._windows(feats)
         logits = (model or self.model).forward_3d_head(flat)
         preds = torch.sigmoid(logits.float())
         return preds.reshape(self.num_tta, n, -1).mean(dim=0)
@@ -380,6 +410,70 @@ class ChunkedVideoPredictor(PredictorBase):
         new_feats = self._gather_feats(parts, n, n + tail, shares[0][0])
         return self._heads(parts, shares), (frames[-self._frame_tail:], new_feats)
 
+    # --- spatial partitioning (frame carry) -------------------------------
+
+    def _row_parts(self, count: int) -> list:
+        """[(data row, its model-axis devices, slice)]: the non-empty parts
+        of ``count`` items, one per data row, in order."""
+        n_data = len(self.mesh.grid)
+        parts = [(r, process_slice(count, r, n_data)) for r in range(n_data)]
+        return [(r, self.mesh.model_devices(r), part) for r, part in parts
+                if part.stop > part.start]
+
+    @staticmethod
+    def _take(pieces: list, lo: int, hi: int, devices, dim: int) -> Bands:
+        """Items [lo, hi) along ``dim`` from ``pieces`` [(first item,
+        bands)], in order and possibly overlapping, as bands on
+        ``devices``."""
+        out, at = [], lo
+        for start, bands in pieces:
+            a, b = max(at, start), min(hi, start + bands.parts[0].shape[dim])
+            if a < b:
+                out.append(bands.map(lambda t: t.narrow(dim, a - start, b - a)).moved(devices))
+                at = b
+        if at != hi:
+            raise ValueError(f"the pieces hold items up to {at}, not [{lo}, {hi})")
+        return cat_bands(out, dim)
+
+    def upload_bands(self, frames_u8: np.ndarray) -> list:
+        """(N, H, W) host u8 new frames → [(buffer index of the first,
+        bands)], per data row the frames its share reads past the carry,
+        each band's rows copied straight to its device."""
+        host = torch.from_numpy(frames_u8)
+        ov, reach = self.overlap, self._frame_tail
+        out = []
+        for r, _, part in self._row_parts(self.chunk_size + self._feat_tail):
+            lo, hi = max(part.start - ov, 0), part.stop + reach - ov
+            if hi > lo:
+                out.append((ov + lo, bands_of(host[lo:hi], *spatial_bands(
+                    self.mesh, host.shape[1], r), axis=1)))
+        return out
+
+    def chunk_spatial(self, new_parts: list, carry: Bands):
+        """Spatial frame carry: ``upload_bands``'s pieces + the (overlap,
+        H, W) u8 carry bands → (preds, carry). Each data row assembles its
+        frames (every copy before any compute), encodes its share of the
+        stacks on its bands, and predicts its share of the windows from the
+        stacks' bands; the carry is the buffer's last ``overlap`` frames,
+        banded over the first row's devices."""
+        shares = self.shares
+        ov, reach, tail = self.overlap, self._frame_tail, self._feat_tail
+        pieces = [(0, carry)] + new_parts
+        rows = self._row_parts(self.chunk_size + tail)
+        frames = [self._take(pieces, part.start, part.stop + reach, devices, 0)
+                  for _, devices, part in rows]
+        parts = []
+        for (r, _, part), f in zip(rows, frames):
+            count = part.stop - part.start
+            x = f.map(lambda t: self.normalize_stacks(self._stacks(t, count)))
+            parts.append((part.start, self.encode_2d(x, shares[r][1])))
+        heads = [(shares[r][1], self._take(parts, part.start, part.stop + tail, devices, 1))
+                 for r, devices, part in self._row_parts(self.chunk_size)]
+        preds = [self.head_from_feats(feats, model).to(shares[0][0]) for model, feats in heads]
+        end = ov + self.chunk_size
+        carry = self._take(pieces, end - ov, end, self.mesh.model_devices(0), 0)
+        return (preds[0] if len(preds) == 1 else torch.cat(preds, dim=0)), carry
+
     def bootstrap(self, first_frames: torch.Tensor, model=None):
         """First ``overlap`` frames → the initial feature carry (frame tail,
         the features of stacks 0..feat_tail-1)."""
@@ -389,12 +483,24 @@ class ChunkedVideoPredictor(PredictorBase):
     # --- host loop -------------------------------------------------------
 
     def init_carry(self, first_frames_u8: np.ndarray):
-        """Device carry from the first ``overlap`` (padded, uint8) frames."""
+        """Device carry from the first ``overlap`` (padded, uint8) frames;
+        spatial: bands over the first data row's model-axis devices."""
+        if self.spatial:
+            frames = torch.from_numpy(first_frames_u8)
+            return bands_of(frames, *spatial_bands(self.mesh, frames.shape[1]), axis=1)
         frames = self.upload(first_frames_u8)
         return self.bootstrap(frames) if self.carry_features else frames
 
+    def put_new(self, frames_u8: np.ndarray):
+        """The chunk program's new frames from the host: ``upload``, or
+        ``upload_bands`` with ``spatial``."""
+        return self.upload_bands(frames_u8) if self.spatial else self.upload(frames_u8)
+
     def chunk_call(self) -> Callable:
-        """The chunk program ``predict_video`` runs: feature or frame carry."""
+        """The chunk program ``predict_video`` runs: feature or frame carry,
+        or the spatial frame carry."""
+        if self.spatial:
+            return self.chunk_spatial
         return self.chunk_features if self.carry_features else self.chunk_frames
 
     def predict_video(
@@ -415,7 +521,7 @@ class ChunkedVideoPredictor(PredictorBase):
                 num_classes=self.model.num_classes,
                 frames=frames,
                 frame_count=frame_count,
-                put_new=self.upload,
+                put_new=self.put_new,
                 put_carry=self.init_carry,
             )
 

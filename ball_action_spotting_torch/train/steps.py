@@ -13,7 +13,10 @@ a CPU generator for the per-clip augmentation values and mixup, and one on
 the frames' device for the noise, dropout and drop-path masks. A resumed
 run therefore draws what an uninterrupted one would have. Under a process
 group the step is data parallel and equals one process's step on the
-global batch (``make_train_step``).
+global batch (``make_train_step``). Frames cut into height bands
+(``parallel/spatial.py::Bands``) make the step spatially partitioned: the
+model runs on the bands and the gradients flow back through the windows
+and the cross-band sums to the weights' device.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ball_action_spotting_torch.parallel.multihost import (
     process_count,
     process_index,
 )
+from ball_action_spotting_torch.parallel.spatial import Bands
 from ball_action_spotting_torch.train.optim import set_lr
 from ball_action_spotting_torch.train.schedules import Schedule
 from ball_action_spotting_torch.train.state import TrainState
@@ -125,26 +129,41 @@ def make_train_step(
     and the reported loss are averaged over the processes. The step then
     equals one process's step on the global batch. With ``iter_size`` > 1
     each microbatch's global batch is the processes' rows of that
-    microbatch."""
+    microbatch.
 
-    def train_step(state: TrainState, frames: torch.Tensor, targets: torch.Tensor,
+    ``frames`` may be (B, T, H, W) bands cut on axis 2 over a grid row's
+    model-axis devices (spatial partitioning, as the JAX package's
+    ``spatial_frames_sharding(mesh, 4, 2)``), with ``targets`` on the first
+    band's device; such a step takes no augmentation, mixup or
+    ``iter_size``, as the JAX package's dp × sp dryrun leg runs none. The
+    draws, the BN statistics (over the bands, then the processes) and the
+    loss are the unbanded step's."""
+
+    def train_step(state: TrainState, frames: torch.Tensor | Bands, targets: torch.Tensor,
                    seed: int) -> dict:
         model = state.model.train()
+        banded = isinstance(frames, Bands)
+        if banded and (augment is not None or mixup is not None or iter_size != 1):
+            raise ValueError("a step on frame bands takes no augmentation, mixup or iter_size")
+        device = frames.devices[0] if banded else frames.device
         b = frames.shape[0]
         if b % iter_size:
             raise ValueError(f"batch {b} is not a multiple of iter_size {iter_size}")
         micro = b // iter_size
         shard = (process_index(), process_count()) if in_process_group() else None
-        host_gen, dev_gen = step_generators(seed, state.step, frames.device)
+        host_gen, dev_gen = step_generators(seed, state.step, device)
         set_dropout_generator(model, dev_gen, shard)
         set_lr(state.optimizer, schedule(state.step))
         state.optimizer.zero_grad(set_to_none=True)
-        loss_sum = torch.zeros((), device=frames.device)
+        loss_sum = torch.zeros((), device=device)
         outs, tgts = [], []
         for i in range(iter_size):
             part = slice(i * micro, (i + 1) * micro)
-            x, tgt = prepare_batch(frames[part], targets[part], host_gen, dev_gen, augment,
-                                   mixup, shard)
+            if banded:
+                x, tgt = frames.map(normalize_frames), targets
+            else:
+                x, tgt = prepare_batch(frames[part], targets[part], host_gen, dev_gen, augment,
+                                       mixup, shard)
             out = model(x)
             loss = loss_fn(out, tgt)
             (loss / iter_size).backward()

@@ -4,12 +4,13 @@ the four-stage recipe with its evaluation, the serving path, the
 fold-fused ensemble, the sealed export and the parallel paths, the
 weight sources and model families (ImageNet files, reference ``.pth``
 checkpoints, the s2d stem, ``multichan_stacker``, ``classifier2d``), the
-host data path (gray stores, the native gather, the rehearsal CLI), and
+host data path (gray stores, the native gather, the rehearsal CLI),
 model parallelism (pipeline- and tensor-parallel training, the serving
-mesh, the dryrun).
+mesh, the dryrun), and spatial partitioning.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase model_parallel   # phases 1 and 10 alone
+    python3 chip_smoke.py --phase spatial          # phases 1 and 11 alone
 
 Phases, in order (any failure exits nonzero; each prints its seconds):
 
@@ -176,16 +177,41 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    the state's bytes on each model-axis index; ``MultiStreamPredictor(mesh=)`` on an
    N × 1 grid of the cards against a ``StreamingPredictor`` per stream on
    phase 6's feed, GeM and dwconv3d launched on every data-axis card; the
-   dryrun (``cli/dryrun_multichip.py``) over the visible cards. Prints ms
+   dryrun (``cli/dryrun_multichip.py``, every leg OK) over the visible
+   cards. Prints ms
    per step of pp, ``iter_size``, tp and one device, and the mesh's tick ms
    by bucket, each beside the card's name and power limit.
-11. Prints the ``kernels`` JSON line (one row per kernel and main path:
+11. Spatial partitioning (``spatial``), at the flagship's full width on
+   phase 3's weights and video: GeM's band-partial launch at the two bands
+   of the TTA-on head, (1280, 12 | 11, 40, 256), and the depthwise kernel
+   on the two bands' windows, (256, 5, 13 | 12, 40, 576), each against its
+   plain version and timed as in phase 2; ``ChunkedVideoPredictor(mesh=,
+   spatial=True)`` on the (1, 2) and (1, 4) grids of the one card repeated
+   (on n cards: (1, n) and, where n ≥ 4, (2, n/2)) over the 414-frame
+   video, TTA off and on, each run with the launch counters set to 0 and
+   held against the unsplit frame-carry engine within 0.02 (bf16), with
+   its end-to-end and device fps, band rows at the input and at 1/32, halo
+   bytes and cross-band sums per chunk (counted from the windows' shapes)
+   and GeM's partial and dwconv3d launches on every band device, and a
+   profile of two TTA-off chunk programs (each card's busy ms and idle
+   share, top kernels) beside the unsplit engine's; a float32
+   run (46 frames, chunk 8, TF32 off) against the unsplit engine within
+   1e-4; the flagship stage-1 train step (batch 4, no augmentation) on
+   bands over a (1, 2) grid against the unbanded step in float32 under
+   deterministic cuDNN (loss, predictions, every gradient), its launches
+   counted as the spatial training path (GeM's partial on every band
+   device), and ms a step of each in bf16. The main path is the first grid
+   with TTA on.
+12. Prints the ``kernels`` JSON line (one row per kernel and main path:
    GeM on the inference and on the training path, the depthwise conv, and
    the warp's H and V passes, each with its own launches and bound, and
    ``launches_by_path``: the recipe, serving, phase-7, -8, -9 and -10 paths
    of the same kind, each of which must launch it; then GeM and the
    depthwise conv at the serving and the multi-channel shapes, each with
-   its paths), then the device line last.
+   its paths; then GeM's band-partial launch and the depthwise conv at
+   phase 11's band shapes, with the spatial paths, GeM's with the banded
+   train step's too), then the device line
+   last.
 
 Float32 comparisons run with TF32 off (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32`` set False): cuDNN would
@@ -283,14 +309,21 @@ from ball_action_spotting_torch.ops.dwconv3d import (
     dwconv3d_grouped_conv,
     dwconv3d_reference,
 )
-from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_reference
+from ball_action_spotting_torch.ops.gem import (
+    gem_pool,
+    gem_pool_partial,
+    gem_pool_partial_reference,
+    gem_pool_reference,
+)
 from ball_action_spotting_torch.ops.losses import FocalLoss, build_loss
 from ball_action_spotting_torch.ops.mixup import Mixup, make_mixup_fn
 from ball_action_spotting_torch.parallel import multihost
-from ball_action_spotting_torch.parallel.mesh import make_mesh
+from ball_action_spotting_torch.parallel.mesh import make_mesh, spatial_bands
 from ball_action_spotting_torch.parallel.multihost import process_slice
 from ball_action_spotting_torch.parallel.pipeline import make_pp_train_step, place_stages
 from ball_action_spotting_torch.parallel.sharding_rules import SHARDS, gathered, shard_state
+from ball_action_spotting_torch.parallel.spatial import COUNTS as SP_COUNTS
+from ball_action_spotting_torch.parallel.spatial import Bands, bands_of
 from ball_action_spotting_torch.predict.__main__ import main as ball_predict
 from ball_action_spotting_torch.predict.export import (
     ExportedChunkPredictor,
@@ -678,12 +711,15 @@ def check_gem(dev, shape: tuple, path: str, per_kernel: bool = False) -> dict:
 
 
 def check_dwconv(dev, num_tta: int, n: int | None = None, path: str = "inference",
-                 per_kernel: bool = False) -> dict:
-    """The depthwise conv at (n, 5, 23, 40, 576) bf16, n = num_tta·CHUNK
-    (the chunk program's) unless given. ``per_kernel`` takes the device
-    time by ``device_ms_events``."""
+                 per_kernel: bool = False, h: int = 23, halo: int = 0) -> dict:
+    """The depthwise conv at (n, 5, h, 40, 576) bf16, n = num_tta·CHUNK
+    (the chunk program's) unless given; ``h`` a band's window rows on the
+    spatial path, of which ``halo`` are a neighbour's: the bound counts the
+    window read once and only the band's own h − halo rows written (the
+    kernel's halo rows of output are cropped). ``per_kernel`` takes the
+    device time by ``device_ms_events``."""
     g = torch.Generator(device=dev).manual_seed(2)
-    x = torch.randn((n or num_tta * CHUNK, 5, 23, 40, 576), generator=g,
+    x = torch.randn((n or num_tta * CHUNK, 5, h, 40, 576), generator=g,
                     device=dev).to(torch.bfloat16)
     k = (torch.randn((3, 3, 3, 1, 576), generator=g, device=dev) / 27 ** 0.5).to(torch.bfloat16)
     out = dwconv3d(x, k)
@@ -696,8 +732,9 @@ def check_dwconv(dev, num_tta: int, n: int | None = None, path: str = "inference
     del ref, out
     torch.cuda.empty_cache()
 
-    nbytes = 2 * x.numel() * 2 + 27 * 576 * 2
-    bound_ms, bound_by = bound(nbytes, 54 * x.numel())
+    out_numel = x.numel() // h * (h - halo)
+    nbytes = x.numel() * 2 + out_numel * 2 + 27 * 576 * 2
+    bound_ms, bound_by = bound(nbytes, 54 * out_numel)
     row = {
         "name": "dwconv3d", "path": path, "tta": num_tta == 2, "shape": list(x.shape),
         "dtype": "bfloat16",
@@ -1243,6 +1280,15 @@ def learning_check(dev) -> None:
         fail(f"the loss did not drop on a fixed batch: {losses}")
 
 
+def grad_ratios(grads: dict, ref: dict, floor: float) -> dict:
+    """Per tensor, max|grad − ref| over max|ref|, floored at ``floor`` of
+    the largest gradient of ``ref``; worst first."""
+    top = max(g.abs().max().item() for g in ref.values())
+    ratios = {n: ((grads[n] - g).abs().max().item() / max(g.abs().max().item(), floor * top))
+              for n, g in ref.items()}
+    return dict(sorted(ratios.items(), key=lambda kv: -kv[1]))
+
+
 def f32_step_card_vs_cpu(dev) -> None:
     """One float32 train step (tiny arch, 64x96, drop rates 0, the same
     sampled augmentation) on the card and on the CPU."""
@@ -1276,10 +1322,8 @@ def f32_step_card_vs_cpu(dev) -> None:
     # its own max can hold. Such a tensor's max is floored at
     # STEP_GRAD_FLOOR·(the largest gradient of the model).
     top = max(g.abs().max().item() for g in cpu_grads.values())
-    ratios = {n: ((card_grads[n] - g).abs().max().item()
-                  / max(g.abs().max().item(), STEP_GRAD_FLOOR * top))
-              for n, g in cpu_grads.items()}
-    worst = max(ratios, key=ratios.get)
+    ratios = grad_ratios(card_grads, cpu_grads, STEP_GRAD_FLOOR)
+    worst = next(iter(ratios))
     vanishing = sorted(n for n, g in cpu_grads.items()
                        if g.abs().max().item() < STEP_GRAD_FLOOR * top)
     log({"check": "f32_step_card_vs_cpu", "loss_cpu": cpu_loss, "loss_card": card_loss,
@@ -1369,10 +1413,12 @@ def training(dev, card: str, keep_dir: Path) -> dict:
 # --------------------------------------------------------------- phase 5 ---
 
 def path_launches() -> dict:
-    """The kernels' counts since the last ``reset_counts``, the warp's by pass."""
+    """The kernels' counts since the last ``reset_counts``, the warp's by
+    pass and GeM's band-partial launches apart."""
     return {**{k.name: k.launches for k in KERNELS},
             "warp_H": warp_ops.KERNEL.launches_by.get("H", 0),
-            "warp_V": warp_ops.KERNEL.launches_by.get("V", 0)}
+            "warp_V": warp_ops.KERNEL.launches_by.get("V", 0),
+            "gem_partial": gem_ops.KERNEL.launches_by.get(gem_ops.PARTIAL, 0)}
 
 
 def counted(name: str, launches: dict, fn):
@@ -3185,32 +3231,34 @@ def launches_on() -> dict:
     return {k.name: dict(k.launches_on) for k in KERNELS}
 
 
+def sync_all(devices) -> None:
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
+
+
 def wall_step_ms(step, devices, warmup: int = 1) -> float:
     """Median ms of ``MP_TIMED_STEPS`` calls of ``step()`` by the host
     clock, every device synchronized before and after each (a pipelined
     step spans two cards)."""
-    def sync():
-        for d in dict.fromkeys(devices):
-            torch.cuda.synchronize(d)
-
     times = []
     for i in range(warmup + MP_TIMED_STEPS):
-        sync()
+        sync_all(devices)
         t0 = time.perf_counter()
         step()
-        sync()
+        sync_all(devices)
         if i >= warmup:
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
-def mp_model(drop: bool = True):
+def mp_model(drop: bool = True, dtype: torch.dtype | None = None):
     """The flagship model (``flagship_config``'s kwargs; drop rates 0
-    unless ``drop``), seeded weights, in ``MP_DTYPE``, on the CPU."""
+    unless ``drop``), seeded weights, in ``dtype`` (default ``MP_DTYPE``),
+    on the CPU."""
     name, kwargs = flagship_config()["argus_params"]["nn_module"]
     if not drop:
         kwargs = dict(kwargs, drop_rate=0.0, drop_path_rate=0.0)
-    model = build_model(name, dtype=MP_DTYPE, **kwargs)
+    model = build_model(name, dtype=dtype or MP_DTYPE, **kwargs)
     init_train_weights(model, torch.Generator().manual_seed(0))
     return model
 
@@ -3514,8 +3562,7 @@ def model_parallel(dev, card: str, weights, video: np.ndarray) -> dict:
                  serving_videos(serving_frames(video)), card, launches)
     dryrun = step("dryrun", dryrun_multichip, max(1, torch.cuda.device_count()),
                   DRYRUN_DEVICE)
-    if not any(leg["ok"] for leg in dryrun) or any(
-            not leg["ok"] and leg["leg"] != "dp x sp" for leg in dryrun):
+    if not all(leg["ok"] for leg in dryrun):
         fail(f"the dryrun's legs: {dryrun}")
     log({"phase": "model_parallel", "card": card, "grid_devices": [str(d) for d in devices],
          "ms_per_step": {"pp": pp["ms_per_step_pp"], "iter_size": pp["ms_per_step_iter_size"],
@@ -3525,9 +3572,353 @@ def model_parallel(dev, card: str, weights, video: np.ndarray) -> dict:
     return launches
 
 
+# -------------------------------------------------------------- phase 11 ---
+
+SP_GEM_ROWS = (12, 11)     # the inference head's 23 rows over two bands
+SP_DW_ROWS = (13, 12)      # a band's rows and its one halo row (band 1 of 2: 11 + 1)
+SP_DW_HALO = 1             # window rows a band of two reads but does not write
+SP_F32_FRAMES = 46         # the float32 check's short video, chunk 8, as phase 3's
+SP_FPS_CHUNKS = 3          # chunk programs timed for device fps
+# The banded float32 step against the unbanded one runs the same ops on
+# windows of the same rows under deterministic cuDNN, TF32 off; the sums
+# over bands and the convs of window shapes reorder float32 sums. The loss
+# is held at the CPU tests' rel 1e-5 (tests/test_torch_spatial.py). A
+# gradient at full width sums far more products than the CPU tests' tiny
+# arch: the stem block's weight gradient sums 20 × 368 × 640 positions,
+# which the bands split in two and cuDNN adds in its own order (3.0e-4 of
+# that tensor's max on an H100 80GB HBM3 at 700 W, every other tensor
+# below), so gradients are held at STEP_GRAD_TOL, 1e-3 of each tensor's
+# max, as the card-vs-CPU float32 step. A BN bias followed by another
+# batch-statistic BN has a gradient of 0 up to float32 rounding noise
+# (6.8e-8 of the model's largest gradient on the CPU rehearsal), so each
+# tensor's max is floored at STEP_GRAD_FLOOR of the largest, as there.
+SP_STEP_LOSS_RTOL = 1e-5
+SP_STEP_GRAD_TOL = STEP_GRAD_TOL
+
+
+def sp_grids(dev) -> list:
+    """[(n_data, n_model, devices)]: on one card (1, 2) and (1, 4) over it
+    repeated; on n cards (1, n) and, where n ≥ 4, (2, n/2)."""
+    n = torch.cuda.device_count()
+    if n <= 1:
+        return [(1, 2, [dev] * 2), (1, 4, [dev] * 4)]
+    cards = [torch.device("cuda", i) for i in range(n)]
+    return [(1, n, cards)] + ([(2, n // 2, cards)] if n >= 4 else [])
+
+
+def check_gem_partial(dev, rows: int) -> dict:
+    """GeM's band-partial launch at a band of the TTA-on inference head,
+    (2·CHUNK·5, rows, 40, 256) bf16, against ``gem_pool_partial_reference``;
+    two runs bit-identical."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((2 * CHUNK * 5, rows, 40, 256), generator=g, device=dev).to(torch.bfloat16)
+    p = torch.tensor([3.0], device=dev)
+    before = gem_ops.KERNEL.launches_by.get(gem_ops.PARTIAL, 0)
+    out = gem_pool_partial(x, p)
+    per_call = gem_ops.KERNEL.launches_by.get(gem_ops.PARTIAL, 0) - before
+    ref = gem_pool_partial_reference(x, p)
+    err = (out - ref).abs().max().item()
+    tol = GEM_TOL * ref.abs().max().item()
+    if per_call < 1 or not err <= tol:
+        fail(f"gem partial vs plain ({tuple(x.shape)}): {per_call} launches, max|diff| {err} "
+             f"> {tol}")
+    if not torch.equal(gem_pool_partial(x, p), out):
+        fail(f"gem partial ({tuple(x.shape)}): two runs on one input differ")
+    nbytes = x.numel() * 2 + out.numel() * 4 + 4
+    bound_ms, bound_by = bound(nbytes, 4 * x.numel())  # clamp, log, mul, exp (+ add)
+    row = {
+        "name": "gem_pool_partial", "path": "spatial inference, a band", "shape": list(x.shape),
+        "dtype": "bfloat16", "max_abs_diff": err, "tolerance": tol,
+        "launches_per_call": per_call,
+        "kernel_ms": median_ms(lambda: gem_pool_partial(x, p)),
+        "direct_ms": median_ms(lambda: gem_ops.gem_pool_partial_cuda(x, p)),
+        "device_ms": device_ms(lambda: gem_pool_partial(x, p), "gem_", per_call=per_call),
+        "device_ms_method": "per_call_sum",
+        "plain_ms": median_ms(lambda: gem_pool_partial_reference(x, p)),
+        "library_ms": median_ms(lambda: x.float().clamp_min(1e-6).pow(p).sum((1, 2))),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    log(row)
+    return row
+
+
+def sp_kernel_checks(dev) -> dict:
+    """Phase 11's kernel rows: GeM's band-partial launch at the two bands
+    of the head, and the depthwise kernel on the two bands' windows, each
+    against its plain version."""
+    rows = {f"gem_pool_partial_{h}rows": check_gem_partial(dev, h) for h in SP_GEM_ROWS}
+    for h in SP_DW_ROWS:
+        rows[f"dwconv3d_band_{h}rows"] = check_dwconv(dev, 2, path="spatial inference, a band",
+                                                      h=h, halo=SP_DW_HALO)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sp_device_fps(predictor, frames: np.ndarray, devices) -> tuple[float, dict]:
+    """Chunk programs on frames already on the card(s): chunk frames per
+    second, and the halo traffic of one chunk (``parallel/spatial.py::
+    COUNTS``, counted from the windows' shapes)."""
+    call = predictor.chunk_call()
+    with torch.inference_mode():
+        new = predictor.put_new(frames[:CHUNK])
+        _, carry = call(new, predictor.init_carry(frames[:predictor.overlap]))
+        sync_all(devices)
+        SP_COUNTS.reset()
+        t0 = time.perf_counter()
+        for _ in range(SP_FPS_CHUNKS):
+            _, carry = call(new, carry)
+        sync_all(devices)
+        secs = time.perf_counter() - t0
+    halo = {"halo_bytes_per_chunk": SP_COUNTS.halo_bytes // SP_FPS_CHUNKS,
+            "halo_copies_per_chunk": SP_COUNTS.halo_copies // SP_FPS_CHUNKS,
+            "band_sums_per_chunk": SP_COUNTS.band_sums // SP_FPS_CHUNKS}
+    return SP_FPS_CHUNKS * CHUNK / secs, halo
+
+
+def sp_profile(predictor, frames: np.ndarray, devices) -> dict:
+    """Two chunk programs on frames already on the card(s) under
+    torch.profiler: wall ms a chunk, each card's busy ms (the union of its
+    kernels' intervals) and idle share, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call, reps = predictor.chunk_call(), 2
+    with torch.inference_mode():
+        new = predictor.put_new(frames[:CHUNK])
+        _, carry = call(new, predictor.init_carry(frames[:predictor.overlap]))
+        sync_all(devices)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                _, carry = call(new, carry)
+            sync_all(devices)
+            wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    _, summed_ms, top = device_time(prof, reps, 120, 8)
+    spans: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.setdefault(f"cuda:{e.device_index}", []).append(
+                (e.time_range.start, e.time_range.end))
+    busy = {d: union_us(v) / 1e3 / reps for d, v in sorted(spans.items())}
+    return {"wall_ms_per_chunk": wall_ms, "busy_ms_per_chunk": busy,
+            "idle_share": {d: max(0.0, 1.0 - b / wall_ms) for d, b in busy.items()},
+            "kernel_sum_ms_per_chunk": summed_ms, "top": top}
+
+
+def sp_inference(dev, card: str, weights, frames: np.ndarray, launches: dict) -> dict:
+    """``ChunkedVideoPredictor(mesh=, spatial=True)`` on each of ``sp_grids``
+    over the 414-frame video, TTA off and on, each run with the launch
+    counters set to 0 and held against the unsplit frame-carry engine
+    within ``PRED_BF16_ATOL``: end-to-end and device fps, band rows, halo
+    traffic and launches per band device; then a float32 run on the first
+    grid's (1, 2) against the unsplit engine within ``PRED_F32_ATOL``."""
+    expected = len(frames) - 30
+    unsplit, out = {}, {"card": card, "unsplit": {}, "grids": []}
+    for tta in (False, True):
+        engine = ChunkedVideoPredictor(weights=weights, device=dev, chunk_size=CHUNK, tta=tta,
+                                       carry_features=False)
+        run_video(engine, frames[:CHUNK + 30])  # warm-up: cuDNN plans
+        _, unsplit[tta], secs = run_video(engine, frames)
+        fps, _ = sp_device_fps(engine, frames, [dev])
+        out["unsplit"][f"tta_{'on' if tta else 'off'}"] = {
+            "end_to_end_fps": expected / secs, "device_fps": fps}
+        if not tta:
+            out["unsplit"]["profile_tta_off"] = sp_profile(engine, frames, [dev])
+        del engine
+    log({"phase": "sp_unsplit_frame_carry", "card": card, **out["unsplit"]})
+    grids = sp_grids(dev)
+    for n_data, n_model, devices in grids:
+        mesh = make_mesh(n_data, n_model, devices)
+        grid = {"grid": f"{n_data}x{n_model}", "devices": [str(d) for d in devices],
+                "band_rows_input": list(spatial_bands(mesh, HEIGHT)[1]),
+                "band_rows_at_1/32": list(spatial_bands(mesh, HEIGHT // 32)[1])}
+        for tta in (False, True):
+            engine = ChunkedVideoPredictor(weights=weights, chunk_size=CHUNK, mesh=mesh,
+                                           spatial=True, tta=tta)
+            run_video(engine, frames[:CHUNK + 30])
+            name = f"sp_{n_data}x{n_model}_tta_{'on' if tta else 'off'}"
+            idx, raw, secs = counted(name, launches, lambda: run_video(engine, frames))
+            on = launches_on()
+            check_outputs(name, idx, raw, expected)
+            diff = agree(f"{name}_vs_unsplit", raw, unsplit[tta], PRED_BF16_ATOL)
+            counts = launches[name]
+            if counts["gem_partial"] < 1 or counts["dwconv3d"] < 1 or any(
+                    on["gem"].get(str(d), 0) < 1 or on["dwconv3d"].get(str(d), 0) < 1
+                    for d in devices):
+                fail(f"{name} did not launch GeM's partial and dwconv3d on every band device: "
+                     f"{counts} {on}")
+            fps, halo = sp_device_fps(engine, frames, devices)
+            grid[f"tta_{'on' if tta else 'off'}"] = {
+                "max_abs_diff_vs_unsplit": diff, "end_to_end_fps": expected / secs,
+                "device_fps": fps, **halo, "launches": counts, "launches_on": on}
+            if not tta:
+                grid["profile_tta_off"] = sp_profile(engine, frames, devices)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["grids"].append(grid)
+        log({"phase": "sp_grid", "card": card, **grid})
+    # the main path: the first grid, TTA on
+    launches["sp_predict"] = launches[f"sp_{grids[0][0]}x{grids[0][1]}_tta_on"]
+
+    f32 = dict(weights=weights, chunk_size=8, dtype=torch.float32, dw3d_use_kernel=True)
+    short = frames[:SP_F32_FRAMES]
+    _, raw32, _ = run_video(ChunkedVideoPredictor(device=dev, carry_features=False, **f32), short)
+    grid = grids[0][2][:2]
+    _, sp32, _ = run_video(ChunkedVideoPredictor(mesh=make_mesh(1, 2, grid), spatial=True,
+                                                 **f32), short)
+    out["f32_max_abs_diff"] = agree("sp_f32_1x2_vs_unsplit", sp32, raw32, PRED_F32_ATOL)
+    return out
+
+
+def sp_train_step(dev, card: str, launches: dict) -> dict:
+    """The flagship stage-1 step (batch 4, no augmentation, as the dryrun's
+    dp × sp leg) on bands over a (1, 2) grid (two cards, or the one twice)
+    against the unbanded step from the same weights and batch, in float32
+    under deterministic cuDNN: loss, predictions and every gradient. The
+    banded step is the spatial training path: its launches go to
+    ``launches["sp_train"]``, and GeM's band-partial launch must have run on
+    every band device. Then ms a step of each in ``MP_DTYPE``."""
+    devices = sp_grids(dev)[0][2][:2]
+    mesh = make_mesh(1, 2, devices)
+    loss_fn = flagship_loss()
+    step = make_train_step(loss_fn, lambda count: 1e-4, 0.999)
+    frames, targets = mp_batch(dev, seed=5)
+
+    def banded_x() -> Bands:
+        return bands_of(frames, *spatial_bands(mesh, frames.shape[2]), axis=2)
+
+    records, on = [], {}
+    with deterministic_cudnn():
+        for banded in (False, True):
+            model = mp_model(dtype=torch.float32).to(dev)
+            state = TrainState(model, build_optimizer("AdamW", {}, model))
+            if banded:
+                aux = counted("sp_train", launches,
+                              lambda: step(state, banded_x(), targets, 11))
+                on = launches_on()
+            else:
+                aux = step(state, frames, targets, 11)
+            records.append((float(aux["loss"]), aux["prediction"].float().cpu(),
+                            {n: p.grad.float().cpu() for n, p in model.named_parameters()}))
+            del model, state, aux
+            gc.collect()
+            torch.cuda.empty_cache()
+    if launches["sp_train"]["gem_partial"] < 1 or any(
+            on["gem"].get(str(d), 0) < 1 for d in devices):
+        fail(f"the banded step did not launch GeM's partial on every band device: "
+             f"{launches['sp_train']} {on}")
+    (ref_loss, ref_pred, ref_grads), (loss, pred, grads) = records
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    ratios = grad_ratios(grads, ref_grads, STEP_GRAD_FLOOR)
+    worst = next(iter(ratios))
+    coarse = grad_ratios(grads, ref_grads, 1e-2)
+    top = max(g.abs().max().item() for g in ref_grads.values())
+    row = {"check": "sp_step_vs_unbanded", "card": card, "dtype": "float32",
+           "devices": [str(d) for d in devices], "loss": loss, "loss_ref": ref_loss,
+           "loss_rel_diff": rel, "loss_rtol": SP_STEP_LOSS_RTOL,
+           "prediction_max_abs_diff": (pred - ref_pred).abs().max().item(),
+           "grad_floor": STEP_GRAD_FLOOR,
+           "worst_grad_diff_over_max": ratios[worst], "worst_grad": worst,
+           "next_worst_grads": list(ratios.items())[1:5],
+           "grads_floored": sorted(n for n, g in ref_grads.items()
+                                   if g.abs().max().item() < STEP_GRAD_FLOOR * top),
+           "worst_at_floor_1e-2": next(iter(coarse.items())),
+           "grad_tol": SP_STEP_GRAD_TOL, "grad_tensors": len(ratios),
+           "launches": launches["sp_train"], "launches_on": on}
+    log(row)
+    if not (rel <= SP_STEP_LOSS_RTOL and ratios[worst] <= SP_STEP_GRAD_TOL):
+        fail(f"the banded float32 step disagrees with the unbanded one: loss {rel}, "
+             f"grad {worst} {ratios[worst]}")
+
+    for banded in (False, True):
+        model = mp_model().to(dev)
+        state = TrainState(model, build_optimizer("AdamW", {}, model))
+        row[f"ms_per_step_{'banded' if banded else 'unbanded'}"] = wall_step_ms(
+            lambda: step(state, banded_x() if banded else frames,
+                         targets, 11), devices)
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    log({"phase": "sp_step_ms", "card": card, "dtype": str(MP_DTYPE),
+         "ms_per_step_unbanded": row["ms_per_step_unbanded"],
+         "ms_per_step_banded": row["ms_per_step_banded"]})
+    return row
+
+
+def spatial(dev, card: str, weights, video: np.ndarray) -> tuple[dict, dict]:
+    """Phase 11: spatial partitioning at the flagship's width: the kernel
+    rows of the band shapes, the spatial engine on every grid against the
+    unsplit one, the banded train step; returns each path's launches and
+    the kernel rows."""
+    t0 = time.perf_counter()
+    launches: dict = {}
+    rows = sp_kernel_checks(dev)
+    inference = sp_inference(dev, card, weights, video, launches)
+    train = sp_train_step(dev, card, launches)
+    log({"phase": "spatial", "card": card, "inference": inference,
+         "ms_per_step": {k: train[k] for k in ("ms_per_step_unbanded", "ms_per_step_banded")},
+         "seconds": time.perf_counter() - t0})
+    return launches, rows
+
+
 def device_line() -> dict:
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}
+
+
+def kernels_line(sources: dict, rows: dict) -> list:
+    """The kernels JSON line's rows: for each ``sources`` entry (row name →
+    (count key, source, TPU kernel, {path: launches})), its phase-2 row's
+    numbers and its launches on every path that runs it, each of which must
+    have launched it."""
+    kernels = []
+    for name, (kernel, source, replaces, paths) in sources.items():
+        row = rows[name]
+        by_path = {path: counts[kernel] for path, counts in paths.items()}
+        if not all(n > 0 for n in by_path.values()):
+            fail(f"{name} was not launched on every path it runs on: {by_path}")
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": by_path[next(iter(paths))], "launches_by_path": by_path,
+            "max_abs_err": row["max_abs_diff"],
+            "ms": row["kernel_ms"], "direct_ms": row["direct_ms"],
+            "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": row["shape"],
+        })
+    if any(not (math.isfinite(k["ms"]) and math.isfinite(k["device_ms"])) for k in kernels):
+        fail("a kernel time is not finite")
+    return kernels
+
+
+def spatial_sources(sp_launches: dict) -> dict:
+    """The kernels line's phase-11 rows: GeM's band-partial launch and the
+    depthwise kernel on band windows, launched on the spatial main path
+    (the first grid, TTA on) and the other grids' runs; GeM's also on the
+    banded train step (``sp_train``; training's depthwise conv is cuDNN's)."""
+    paths = {"sp_predict": sp_launches["sp_predict"],
+             **{k: v for k, v in sp_launches.items()
+                if k.startswith("sp_") and k not in ("sp_predict", "sp_train")}}
+    gem = ("gem_partial", "ball_action_spotting_torch/csrc/gem.cu",
+           "ball_action_spotting_tpu/ops/pallas_gem.py:64",
+           {**paths, "sp_train": sp_launches["sp_train"]})
+    dw = ("dwconv3d", "ball_action_spotting_torch/csrc/dwconv3d.cu",
+          "ball_action_spotting_tpu/ops/pallas_dwconv3d.py:105", paths)
+    return {**{f"gem_pool_partial_{h}rows": gem for h in SP_GEM_ROWS},
+            **{f"dwconv3d_band_{h}rows": dw for h in SP_DW_ROWS}}
+
+
+def spatial_alone(dev, card: str) -> None:
+    """``--phase spatial``: phase 11 after the kernels' build, on the
+    inference phase's seeded weights and video, and its kernel rows."""
+    video = flagship_video()
+    weights = (flagship_weights(dev, video), PARAMS)
+    t0 = time.perf_counter()
+    launches, rows = spatial(dev, card, weights, video)
+    log({"phase": "spatial_done", "seconds": time.perf_counter() - t0, "launches": launches})
+    log(card)
+    log({"kernels": kernels_line(spatial_sources(launches), rows)})
+    log(device_line())
 
 
 def model_parallel_alone(dev, card: str) -> None:
@@ -3547,8 +3938,9 @@ def main() -> None:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phase", choices=("all", "model_parallel"), default="all",
-                        help="model_parallel: build the kernels, then run phase 10 alone")
+    parser.add_argument("--phase", choices=("all", "model_parallel", "spatial"), default="all",
+                        help="model_parallel, spatial: build the kernels, then run phase 10 "
+                             "or 11 alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -3562,6 +3954,8 @@ def main() -> None:
     build_kernels()
     if args.phase == "model_parallel":
         return model_parallel_alone(dev, card)
+    if args.phase == "spatial":
+        return spatial_alone(dev, card)
 
     t0 = time.perf_counter()
     # the inference main path runs hflip TTA, so its shapes are the
@@ -3618,6 +4012,12 @@ def main() -> None:
     t0 = time.perf_counter()
     mp_launches = model_parallel(dev, card, weights, video)
     log({"phase": "model_parallel_done", "seconds": time.perf_counter() - t0})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sp_launches, sp_rows = spatial(dev, card, weights, video)
+    rows.update(sp_rows)
+    log({"phase": "spatial_done", "seconds": time.perf_counter() - t0})
 
     # one row per kernel and main path; the warp's H and V passes, two
     # launches of one kernel at different shapes and access patterns, each
@@ -3678,23 +4078,8 @@ def main() -> None:
                                "ball_action_spotting_tpu/ops/pallas_dwconv3d.py:105",
                                {"multichan": family_launches["multichan"]}),
     }
-    kernels = []
-    for name, (kernel, source, replaces, paths) in sources.items():
-        row = rows[name]
-        by_path = {path: counts[kernel] for path, counts in paths.items()}
-        if not all(n > 0 for n in by_path.values()):
-            fail(f"{name} was not launched on every path it runs on: {by_path}")
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": by_path[next(iter(paths))], "launches_by_path": by_path,
-            "max_abs_err": row["max_abs_diff"],
-            "ms": row["kernel_ms"], "direct_ms": row["direct_ms"],
-            "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "shape": row["shape"],
-        })
-    if any(not (math.isfinite(k["ms"]) and math.isfinite(k["device_ms"])) for k in kernels):
-        fail("a kernel time is not finite")
+    sources.update(spatial_sources(sp_launches))
+    kernels = kernels_line(sources, rows)
     log(card)
     log({"kernels": kernels})
     log(device_line())

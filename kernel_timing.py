@@ -4,16 +4,19 @@ its source, on one NVIDIA GPU, at the main paths' shapes.
     git show <commit>:ball_action_spotting_torch/csrc/warp.cu > build/warp_parent.cu
     python3 kernel_timing.py --kernel warp --other build/warp_parent.cu --other-abi pr5
     python3 kernel_timing.py --kernel gem --other build/gem_parent.cu --other-abi pr5
+    python3 kernel_timing.py --kernel gem --other build/gem_parent.cu --other-abi noroot
 
 Builds ``ball_action_spotting_torch/csrc/<kernel>.cu`` and the ``--other``
 source with nvcc as ``ops/_cuda.py`` does and prints ptxas' register
 report. The other source exports the same entry point, with the repo's C
 interface (``--other-abi current``) or that of PR 5's sources (``pr5``: the
 warp took the block-center offsets gathered by the wrapper, GeM had no
-16-byte or split mode). Each version is held against the plain PyTorch
-version (``chip_smoke.py``'s tolerances), then the two are timed in turns,
-A B B A, each turn the median over 10 calls of the kernel's own device time
-(torch.profiler, ``chip_smoke.device_ms``). Shapes, bf16: warp H and V
+16-byte or split mode). A GeM source from before the band-partial launch
+takes ``--other-abi noroot``: split sums, but no ``root`` argument. Each
+version is held against the plain PyTorch version (``chip_smoke.py``'s
+tolerances), then the two are timed in turns, A B B A, each turn the
+median over 10 calls of the kernel's own device time (torch.profiler,
+``chip_smoke.device_ms``). Shapes, bf16: warp H and V
 passes at (60, 736, 1280); GeM at (1280, 23, 40, 256) and (640, 23, 40,
 256) (inference, hflip TTA on and off) and (4, 23, 40, 1280) (train head).
 Prints the card's ``nvidia-smi`` name and power limit first, then one JSON
@@ -54,6 +57,11 @@ PR5_SIGNATURES = {
     "warp": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "gem": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
 }
+# GeM's C interface before the band-partial launch: gem_forward(x, p, out,
+# partial, b, hw, c, eps, dtype, wide, splits, stream), the current one
+# without root
+NOROOT_SIGNATURES = {"gem": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P]}
+OLD_SIGNATURES = {"pr5": PR5_SIGNATURES, "noroot": NOROOT_SIGNATURES}
 
 
 class SourceKernel(CudaKernel):
@@ -119,6 +127,10 @@ def gem_cases(dev):
             "current": lambda k, out, x=x, b=b, h=h, w=w, c=c, wide=wide, splits=splits,
             partial=partial: k.launch(
                 x.data_ptr(), p.data_ptr(), out.data_ptr(), partial.data_ptr(), b, h * w, c,
+                1e-6, 1, int(wide), splits, 1, stream_handle(x)),
+            "noroot": lambda k, out, x=x, b=b, h=h, w=w, c=c, wide=wide, splits=splits,
+            partial=partial: k.launch(
+                x.data_ptr(), p.data_ptr(), out.data_ptr(), partial.data_ptr(), b, h * w, c,
                 1e-6, 1, int(wide), splits, stream_handle(x)),
             "pr5": lambda k, out, x=x, b=b, h=h, w=w, c=c: k.launch(
                 x.data_ptr(), p.data_ptr(), out.data_ptr(), b, h * w, c, 1e-6, 1,
@@ -145,7 +157,7 @@ def main() -> int:
     parser.add_argument("--kernel", choices=("warp", "gem"), required=True)
     parser.add_argument("--other", type=Path, required=True,
                         help="another <kernel>.cu to build and time beside the repo's")
-    parser.add_argument("--other-abi", choices=("current", "pr5"), default="current",
+    parser.add_argument("--other-abi", choices=("current", "pr5", "noroot"), default="current",
                         help="the C interface of --other")
     parser.add_argument("--sass", type=Path, help="write cuobjdump -sass of both here")
     args = parser.parse_args()
@@ -154,7 +166,10 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     own = {"warp": warp_ops.KERNEL, "gem": gem_ops.KERNEL}[args.kernel]
-    signature = own.signature if args.other_abi == "current" else PR5_SIGNATURES[args.kernel]
+    if args.other_abi != "current" and args.kernel not in OLD_SIGNATURES[args.other_abi]:
+        parser.error(f"--other-abi {args.other_abi} applies to GeM only")
+    signature = (own.signature if args.other_abi == "current"
+                 else OLD_SIGNATURES[args.other_abi][args.kernel])
     kernels = {"kernel": own,
                args.other.name: SourceKernel(args.other, f"{args.kernel}_other", own.entry,
                                              signature)}

@@ -40,7 +40,7 @@ from ball_action_spotting_torch.convert import (
 from ball_action_spotting_torch.data.video import SyntheticSource
 from ball_action_spotting_torch.ops.augment import apply_augment, sample_augment_params
 from ball_action_spotting_torch.ops.dwconv3d import dwconv3d_op
-from ball_action_spotting_torch.ops.gem import gem_pool_op
+from ball_action_spotting_torch.ops.gem import gem_pool_op, gem_pool_partial_op
 from ball_action_spotting_torch.ops.warp import warp_resample_op
 from ball_action_spotting_torch.parallel import multihost
 from ball_action_spotting_torch.parallel.mesh import make_mesh, pad_batch_to_devices
@@ -156,21 +156,15 @@ def test_chunked_engine_on_a_data_grid_matches_one_device(ckpt_path, carry_featu
     np.testing.assert_allclose(r2, r1, atol=1e-6)
 
 
-def test_spatial_partitioning_is_not_ported(ckpt_path):
-    with pytest.raises(NotImplementedError, match="spatial"):
-        ChunkedVideoPredictor(ckpt_path, mesh=make_mesh(1, 2, ["cpu"] * 2), spatial=True,
-                              dtype=torch.float32)
-
-
-@pytest.mark.parametrize("op", ["gem_pool", "dwconv3d", "warp_h", "warp_v"])
+@pytest.mark.parametrize("op", ["gem_pool", "gem_pool_partial", "dwconv3d", "warp_h", "warp_v"])
 def test_opcheck_custom_ops(op):
     """``torch.library.opcheck`` on the CPU: schema, fake (shape) function,
-    autograd registration (GeM's backward) and tracing."""
+    autograd registration (GeM's backwards) and tracing."""
     g = torch.Generator().manual_seed(0)
-    if op == "gem_pool":
+    if op.startswith("gem_pool"):
         args = (torch.rand(2, 3, 4, 8, generator=g, requires_grad=True),
                 torch.full((1,), 3.0, requires_grad=True), 1e-6)
-        fn = gem_pool_op
+        fn = gem_pool_op if op == "gem_pool" else gem_pool_partial_op
     elif op == "dwconv3d":
         args = (torch.rand(1, 3, 4, 5, 6, generator=g), torch.rand(3, 3, 3, 1, 6, generator=g))
         fn = dwconv3d_op
