@@ -11,7 +11,13 @@ the extra pixel of a stride-2 conv at the bottom/right, and BatchNorm eps
 ``convert.py`` maps one state onto the other. In training mode BN uses
 batch statistics and the residual blocks drop paths. ``stem_space_to_depth``
 is the JAX package's space-to-depth stem (``stem_kernel_to_s2d`` maps a
-trained stem onto it); the int8 convs of the JAX package are not ported yet.
+trained stem onto it). ``conv_int8=True`` builds the blocks' bias-free convs
+as ``models/quantize.py::QuantConv`` (int8 inference convs with a dynamic
+activation scale, the same parameters), exactly where the JAX package's
+``_conv_cls`` does: ``ConvBnAct.conv``, ``EdgeResidual.conv_exp`` and
+``conv_pwl``, ``InvertedResidual2d.conv_pw``, ``conv_dw`` (which, grouped,
+keeps the compute-dtype conv) and ``conv_pwl``; the stem and the SE convs
+stay in the compute dtype.
 
 Every module also takes its input cut into height bands
 (``parallel/spatial.py::Bands``, spatial partitioning) and returns bands:
@@ -235,6 +241,16 @@ class Conv2dSame(nn.Module):
             padding = (0, 0)
         return F.conv2d(x, self.weight.to(x.device, x.dtype), None, self.stride, padding,
                         groups=self.groups)
+
+
+def _conv_cls(conv_int8: bool):
+    """``Conv2dSame``, or its int8 drop-in (``models/quantize.py``) for the
+    blocks' bias-free convs: the same parameter, inference only."""
+    if conv_int8:
+        from ball_action_spotting_torch.models.quantize import QuantConv
+
+        return QuantConv
+    return Conv2dSame
 
 
 class PointwiseConv(nn.Module):
@@ -503,10 +519,10 @@ class SqueezeExcite2d(nn.Module):
 class ConvBnAct(nn.Module):
     def __init__(self, in_ch: int, channels: int, kernel: int, stride: int,
                  act: Callable = F.silu, bn_eps: float = 1e-3, bn_folded: bool = False,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, conv_int8: bool = False):
         super().__init__()
         self.has_skip = stride == 1 and in_ch == channels
-        self.conv = Conv2dSame(in_ch, channels, kernel, stride)
+        self.conv = _conv_cls(conv_int8)(in_ch, channels, kernel, stride)
         self.bn1 = BatchNormAct(channels, act, bn_eps, bn_folded)
         self.drop_path = DropPath(drop_path_rate)
 
@@ -520,13 +536,15 @@ class EdgeResidual(nn.Module):
 
     def __init__(self, in_ch: int, channels: int, kernel: int, stride: int,
                  expand: int, act: Callable = F.silu, bn_eps: float = 1e-3,
-                 bn_folded: bool = False, drop_path_rate: float = 0.0):
+                 bn_folded: bool = False, drop_path_rate: float = 0.0,
+                 conv_int8: bool = False):
         super().__init__()
         mid = in_ch * expand
+        conv = _conv_cls(conv_int8)
         self.has_skip = stride == 1 and in_ch == channels
-        self.conv_exp = Conv2dSame(in_ch, mid, kernel, stride)
+        self.conv_exp = conv(in_ch, mid, kernel, stride)
         self.bn1 = BatchNormAct(mid, act, bn_eps, bn_folded)
-        self.conv_pwl = Conv2dSame(mid, channels, 1)
+        self.conv_pwl = conv(mid, channels, 1)
         self.bn2 = BatchNormAct(channels, None, bn_eps, bn_folded)
         self.drop_path = DropPath(drop_path_rate)
 
@@ -540,17 +558,19 @@ class InvertedResidual2d(nn.Module):
 
     def __init__(self, in_ch: int, channels: int, kernel: int, stride: int,
                  expand: int, se_ratio: float, act: Callable = F.silu,
-                 bn_eps: float = 1e-3, bn_folded: bool = False, drop_path_rate: float = 0.0):
+                 bn_eps: float = 1e-3, bn_folded: bool = False, drop_path_rate: float = 0.0,
+                 conv_int8: bool = False):
         super().__init__()
         mid = in_ch * expand
+        conv = _conv_cls(conv_int8)
         self.has_skip = stride == 1 and in_ch == channels
-        self.conv_pw = Conv2dSame(in_ch, mid, 1)
+        self.conv_pw = conv(in_ch, mid, 1)
         self.bn1 = BatchNormAct(mid, act, bn_eps, bn_folded)
-        self.conv_dw = Conv2dSame(mid, mid, kernel, stride, groups=mid)
+        self.conv_dw = conv(mid, mid, kernel, stride, groups=mid)
         self.bn2 = BatchNormAct(mid, act, bn_eps, bn_folded)
         self.se = (SqueezeExcite2d(mid, max(1, int(in_ch * se_ratio)), act)
                    if se_ratio > 0 else None)
-        self.conv_pwl = Conv2dSame(mid, channels, 1)
+        self.conv_pwl = conv(mid, channels, 1)
         self.bn3 = BatchNormAct(channels, None, bn_eps, bn_folded)
         self.drop_path = DropPath(drop_path_rate)
 
@@ -570,13 +590,16 @@ class EfficientNetV2Features(nn.Module):
     ``stem_space_to_depth`` folds each 2×2 pixel block into channels
     (``space_to_depth``) and runs the stem as a 2×2 stride-1 SAME conv on
     4·C_in channels, whose weight ``stem_weight_to_s2d`` gives from a
-    standard stem's: the same function."""
+    standard stem's: the same function. ``conv_int8`` builds the blocks'
+    convs as ``QuantConv`` (module docstring); the stem stays
+    ``Conv2dSame``."""
 
     bn_eps = 1e-3  # TF-ported weights; read by models/fold_bn.py
 
     def __init__(self, model_name: str = "efficientnetv2_b0", out_index: int = 4,
                  in_chans: int = 3, act: Callable = F.silu, bn_folded: bool = False,
-                 drop_path_rate: float = 0.0, stem_space_to_depth: bool = False):
+                 drop_path_rate: float = 0.0, stem_space_to_depth: bool = False,
+                 conv_int8: bool = False):
         super().__init__()
         stem_ch, stages = resolve_arch(model_name)
         total_blocks = sum(s.repeats for s in stages)
@@ -596,7 +619,7 @@ class EfficientNetV2Features(nn.Module):
                 dpr = drop_path_rate * len(self.block_names) / total_blocks
                 common = dict(in_ch=in_ch, channels=stage.channels, kernel=stage.kernel,
                               stride=stride, act=act, bn_eps=eps, bn_folded=bn_folded,
-                              drop_path_rate=dpr)
+                              drop_path_rate=dpr, conv_int8=conv_int8)
                 if stage.kind == "cn":
                     block = ConvBnAct(**common)
                 elif stage.kind == "er":

@@ -63,7 +63,9 @@ class MultiDimStacker(nn.Module):
     index) and of every 3D block (in full); their masks come from the
     generator that ``set_dropout_generator`` gives the model.
     ``stem_space_to_depth`` builds the encoder with the space-to-depth stem
-    (``effnetv2.py::EfficientNetV2Features``)."""
+    and ``conv2d_int8`` with the int8 block convs
+    (``effnetv2.py::EfficientNetV2Features``); the projection conv and the
+    3D head stay in the compute dtype."""
 
     def __init__(
         self,
@@ -84,6 +86,7 @@ class MultiDimStacker(nn.Module):
         bn_folded: bool = False,
         dw3d_use_kernel: bool = False,
         stem_space_to_depth: bool = False,
+        conv2d_int8: bool = False,
     ):
         super().__init__()
         if num_frames <= 0 or num_frames % stack_size:
@@ -102,7 +105,7 @@ class MultiDimStacker(nn.Module):
         self.conv2d_encoder = EfficientNetV2Features(
             model_name, index_2d_features, in_chans=self.encoder_in_chans(), act=act,
             bn_folded=bn_folded, drop_path_rate=drop_path_rate,
-            stem_space_to_depth=stem_space_to_depth,
+            stem_space_to_depth=stem_space_to_depth, conv_int8=conv2d_int8,
         )
         self.conv2d_projection_conv = PointwiseConv(enc_ch, num_3d_features)
         self.conv2d_projection_bn = BatchNormAct(

@@ -25,7 +25,9 @@ primitives:
 - ``band_sum(bands, dims)``: each band's float32 sums over ``dims``, added
   in band order on the first band's device and copied back to each band:
   the SE means, GeM's and the train-mode BN statistics' sums. The order is
-  fixed, so runs are deterministic.
+  fixed, so runs are deterministic. ``band_max(bands)`` takes the largest
+  |element| of every band the same way (the int8 convs' activation
+  scale), exact in any order.
 
 Every copy is a differentiable ``.to(device, non_blocking=True)``, issued
 before the op that reads it, so gradients flow back to every band. A
@@ -48,14 +50,15 @@ from ball_action_spotting_torch.parallel.multihost import process_slice
 @dataclasses.dataclass
 class BandCounts:
     """Halo traffic since the last ``reset``: bytes of rows that windows
-    copied from another band, and the cross-band sums taken."""
+    copied from another band, and the cross-band sums and maxima taken."""
 
     halo_bytes: int = 0
     halo_copies: int = 0
     band_sums: int = 0
+    band_maxes: int = 0
 
     def reset(self) -> None:
-        self.halo_bytes = self.halo_copies = self.band_sums = 0
+        self.halo_bytes = self.halo_copies = self.band_sums = self.band_maxes = 0
 
 
 COUNTS = BandCounts()
@@ -257,3 +260,15 @@ def band_sum(bands: Bands, dims: Sequence[int]) -> list[torch.Tensor]:
     partials = [p.sum(tuple(dims), dtype=torch.float32) for p in bands.parts]
     total = add_in_order(partials, bands.devices[0])
     return [total.to(d, non_blocking=True) for d in bands.devices]
+
+
+def band_max(bands: Bands) -> torch.Tensor:
+    """The largest |element| over every band: each non-empty band's max,
+    taken in band order on the first band's device (0-dim, in the bands'
+    dtype)."""
+    COUNTS.band_maxes += 1
+    partials = [torch.linalg.vector_norm(p, float("inf")) for p in bands.parts if p.numel()]
+    total = partials[0].to(bands.devices[0], non_blocking=True)
+    for p in partials[1:]:
+        total = torch.maximum(total, p.to(bands.devices[0], non_blocking=True))
+    return total

@@ -21,7 +21,9 @@ data-axis device, and each call's bucket, floored at the axis size and
 rounded up to a multiple of it, is split into equal shares, one per
 device, each launched on its device's current stream; a window's stack
 features are copied to the device that predicts it, and the predictions are
-gathered on the first device.
+gathered on the first device. With ``conv_int8`` the shares of one encoder
+call take one activation scale, that of the whole padded bucket, as the
+JAX package's sharded program does (``PredictorBase.run_shares``).
 
 ``DeviceStateMultiStreamPredictor`` keeps each stream's state on one
 device instead, in two preallocated rings updated in place, so that a
@@ -102,9 +104,10 @@ def device_tick_ms(predictor: "MultiStreamPredictor", bucket: int,
               for dev, model, part in predictor._share_slices(bucket)]
 
     def tick():
-        for model, xs in shares:
-            feats = predictor.fwd2d(xs, model)  # (share, tta, h, w, C)
-            predictor._fwd3d_rows(torch.cat([feats] * predictor.num_stacks), len(xs), model)
+        feats = predictor.run_shares([lambda model=model, xs=xs: predictor.fwd2d(xs, model)
+                                      for model, xs in shares])  # (share, tta, h, w, C) each
+        for (model, xs), f in zip(shares, feats):
+            predictor._fwd3d_rows(torch.cat([f] * predictor.num_stacks), len(xs), model)
 
     return _differenced_ms([dev for dev, _ in predictor.shares], tick, scan_lengths, reps)
 
@@ -213,10 +216,14 @@ class MultiStreamPredictor(PredictorBase):
     def _encode_stacks(self, batch: np.ndarray) -> list:
         """(nb, stack, H, W) padded u8 stacks → nb (tta, h, w, C) feature
         rows, each on the device of its share."""
+        shares = self._share_slices(len(batch))
+        feats = self.run_shares([
+            lambda dev=dev, model=model, part=part: self.fwd2d(
+                torch.from_numpy(batch[part]).to(dev), model)
+            for dev, model, part in shares])
         rows = []
-        for dev, model, part in self._share_slices(len(batch)):
-            feats = self.fwd2d(torch.from_numpy(batch[part]).to(dev), model)
-            rows.extend(self._split_rows(feats, part.stop - part.start))
+        for (_, _, part), f in zip(shares, feats):
+            rows.extend(self._split_rows(f, part.stop - part.start))
         return rows
 
     def _predict_windows(self, rows: list, mb: int) -> torch.Tensor:

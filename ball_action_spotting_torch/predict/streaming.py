@@ -32,8 +32,13 @@ per stack.
 of a device grid (``parallel/mesh.py``); ``spatial=True`` also cuts the
 frame height into bands over each data row's model-axis devices
 (``parallel/spatial.py``). Every engine reads a ``.ckpt`` or a reference
-argus ``.pth`` and takes ``s2d_stem`` (the space-to-depth stem, exact). Not
-ported yet: int8 convs.
+argus ``.pth`` and takes ``s2d_stem`` (the space-to-depth stem, exact) and
+``conv_int8`` (the encoder blocks' convs as int8 convs with a dynamic
+activation scale, ``models/quantize.py``). With ``conv_int8`` each encoder
+call quantizes over the whole batch the JAX package's conv sees: the
+chunk's stacks with both TTA copies, the bootstrap as its own call, and,
+where a grid splits the batch into data shares, one scale over every share
+(``PredictorBase.run_shares``).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from ball_action_spotting_torch.device import resolve_device
 from ball_action_spotting_torch.models import build_model
 from ball_action_spotting_torch.models.effnetv2 import stem_weight_to_s2d
 from ball_action_spotting_torch.models.fold_bn import fold_bn_state_dict
+from ball_action_spotting_torch.models.quantize import run_shares
 from ball_action_spotting_torch.parallel.mesh import make_mesh, spatial_bands
 from ball_action_spotting_torch.parallel.multihost import process_slice
 from ball_action_spotting_torch.parallel.spatial import Bands, bands_of, cat_bands
@@ -100,7 +106,9 @@ class PredictorBase:
     TPU). ``dw3d_use_kernel`` routes the 3D blocks' depthwise conv through
     the hand-written kernel; by default it does so on a CUDA device, and
     ``False`` keeps the grouped ``conv3d`` there. ``s2d_stem`` runs the
-    encoder's stem as the space-to-depth stem, on the same weights."""
+    encoder's stem as the space-to-depth stem, on the same weights.
+    ``conv_int8`` builds the encoder blocks' convs as int8 convs
+    (``models/quantize.py::QuantConv``, inference only)."""
 
     def __init__(
         self,
@@ -113,12 +121,15 @@ class PredictorBase:
         device: str | torch.device = "cuda",
         weights: tuple[dict, dict] | None = None,
         s2d_stem: bool = False,
+        conv_int8: bool = False,
     ):
         self.device = resolve_device(device)
         if dw3d_use_kernel is None:
             dw3d_use_kernel = self.device.type == "cuda"
+        self.conv_int8 = conv_int8
         self._load_options = dict(use_ema=use_ema, dtype=dtype, fold_bn=fold_bn,
-                                  dw3d_use_kernel=dw3d_use_kernel, s2d_stem=s2d_stem)
+                                  dw3d_use_kernel=dw3d_use_kernel, s2d_stem=s2d_stem,
+                                  conv_int8=conv_int8)
         self.model, params = self.load_model(checkpoint_path, weights)
         self.params = params
         self.tta = tta
@@ -135,7 +146,7 @@ class PredictorBase:
                    weights: tuple[dict, dict] | None = None):
         """(model on this engine's device in eval mode, params dict) from a
         checkpoint or from ``weights``, with this engine's EMA choice,
-        compute dtype, BN fold, stem and depthwise route."""
+        compute dtype, BN fold, stem, depthwise route and int8 convs."""
         opts = self._load_options
         if (checkpoint_path is None) == (weights is None):
             raise ValueError("pass exactly one of checkpoint_path and weights")
@@ -151,6 +162,7 @@ class PredictorBase:
             raise ValueError(f"Unsupported nn_module {nn_name!r}")
         model = build_model(nn_name, dtype=opts["dtype"], bn_folded=opts["fold_bn"],
                             dw3d_use_kernel=opts["dw3d_use_kernel"],
+                            conv2d_int8=opts["conv_int8"],
                             **{**nn_kwargs, "stem_space_to_depth": opts["s2d_stem"]})
         model.load_state_dict(state, strict=True)
         return model.to(self.device).eval(), params
@@ -179,6 +191,15 @@ class PredictorBase:
 
     def upload(self, frames_u8: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(frames_u8).to(self.device)
+
+    def run_shares(self, calls: list) -> list:
+        """The encoder work of one call's data shares, one call each, in
+        order. With int8 convs and more than one share, each runs in its own
+        thread of one scale group, so that every share quantizes with the
+        scale of the whole batch (``models/quantize.py::run_shares``)."""
+        if self.conv_int8:
+            return run_shares(calls, self.device)
+        return [call() for call in calls]
 
     @staticmethod
     def place(model, devices) -> list:
@@ -364,10 +385,11 @@ class ChunkedVideoPredictor(PredictorBase):
         # every copy before any compute: a copy between devices runs on its
         # source device's stream, behind the work already queued there
         subs = [frames[part.start:part.stop + reach].to(dev) for dev, _, part in work]
-        return [(first + part.start,
-                 self.encode_2d(self.normalize_stacks(self._stacks(sub, part.stop - part.start)),
-                                model))
-                for (_, model, part), sub in zip(work, subs)]
+        feats = self.run_shares([
+            lambda sub=sub, model=model, count=part.stop - part.start: self.encode_2d(
+                self.normalize_stacks(self._stacks(sub, count)), model)
+            for (_, model, part), sub in zip(work, subs)])
+        return [(first + part.start, f) for (_, _, part), f in zip(work, feats)]
 
     @staticmethod
     def _gather_feats(parts, lo: int, hi: int, device) -> torch.Tensor:
@@ -462,11 +484,11 @@ class ChunkedVideoPredictor(PredictorBase):
         rows = self._row_parts(self.chunk_size + tail)
         frames = [self._take(pieces, part.start, part.stop + reach, devices, 0)
                   for _, devices, part in rows]
-        parts = []
-        for (r, _, part), f in zip(rows, frames):
-            count = part.stop - part.start
-            x = f.map(lambda t: self.normalize_stacks(self._stacks(t, count)))
-            parts.append((part.start, self.encode_2d(x, shares[r][1])))
+        feats = self.run_shares([
+            lambda f=f, r=r, count=part.stop - part.start: self.encode_2d(
+                f.map(lambda t: self.normalize_stacks(self._stacks(t, count))), shares[r][1])
+            for (r, _, part), f in zip(rows, frames)])
+        parts = [(part.start, feat) for (_, _, part), feat in zip(rows, feats)]
         heads = [(shares[r][1], self._take(parts, part.start, part.stop + tail, devices, 1))
                  for r, devices, part in self._row_parts(self.chunk_size)]
         preds = [self.head_from_feats(feats, model).to(shares[0][0]) for model, feats in heads]

@@ -6,11 +6,12 @@ weight sources and model families (ImageNet files, reference ``.pth``
 checkpoints, the s2d stem, ``multichan_stacker``, ``classifier2d``), the
 host data path (gray stores, the native gather, the rehearsal CLI),
 model parallelism (pipeline- and tensor-parallel training, the serving
-mesh, the dryrun), and spatial partitioning.
+mesh, the dryrun), spatial partitioning, and the int8 encoder convs.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase model_parallel   # phases 1 and 10 alone
     python3 chip_smoke.py --phase spatial          # phases 1 and 11 alone
+    python3 chip_smoke.py --phase int8             # phases 1 and 12 alone
 
 Phases, in order (any failure exits nonzero; each prints its seconds):
 
@@ -202,7 +203,32 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    counted as the spatial training path (GeM's partial on every band
    device), and ms a step of each in bf16. The main path is the first grid
    with TTA on.
-12. Prints the ``kernels`` JSON line (one row per kernel and main path:
+12. The int8 encoder convs (``int8``, ``conv_int8=True``), at the
+   flagship's full width on phase 3's weights and video: the s8 kernel
+   (``csrc/int8_conv.cu``) through the op's CUDA route at
+   ``INT8_EDGE_CASES`` (ragged tiles, odd sizes at stride 2, C padded to 16,
+   1×1 convs on the kernel, odd O, two passes over C, k 5, a misaligned
+   x, a 1×1 through ``_int_mm``; every output and int32 sum equal to the
+   plain version's, each case's route checked); the five k×k shapes of a
+   TTA-on chunk (``INT8_SHAPES``, batch 256) exact in int32 and bf16
+   against the plain version (float64, in slices of 16 images), timed as
+   in phase 2 beside cuDNN's bf16 conv of the same shape; two 1×1 shapes
+   through ``_int_mm``, exact, beside the kernel at k 1. Then the flagship
+   int8 engine (bf16, chunk 128, feature carry): the main path TTA on with
+   the launch counters at 0 (5 kernel launches and 36 ``_int_mm`` calls per
+   encoder call, GeM 3, dwconv3d 12), a TTA-off chunk whose 41 quantized
+   layers a forward hook holds against the plain version on their
+   captured inputs, exactly, the drift from phase 3's bf16 predictions
+   (< 0.15), the encoder features on 32 stacks equal to those of the plain
+   s8 product and their correlation with bf16 (logged),
+   device and end-to-end fps of int8 and bf16 in turns, TTA off and on,
+   and a chunk profile by op. Then, each path counted from 0: the streaming
+   engine against the chunked one, the device-state engine on a feed of 4
+   streams and its tick ms at buckets 1, 8, 16 beside the 40-ms limit, the
+   sp 1×2 grid against the unsplit engine, the frame-carry engine exported
+   and reloaded (41 ``int8_conv2d`` nodes), and the data-share grid on the
+   visible cards; each launches the int8 kernel, GeM and dwconv3d.
+13. Prints the ``kernels`` JSON line (one row per kernel and main path:
    GeM on the inference and on the training path, the depthwise conv, and
    the warp's H and V passes, each with its own launches and bound, and
    ``launches_by_path``: the recipe, serving, phase-7, -8, -9 and -10 paths
@@ -210,7 +236,8 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    depthwise conv at the serving and the multi-channel shapes, each with
    its paths; then GeM's band-partial launch and the depthwise conv at
    phase 11's band shapes, with the spatial paths, GeM's with the banded
-   train step's too), then the device line
+   train step's too; then the int8 kernel at phase 12's k×k shapes with
+   the int8 paths and cuDNN's bf16 time beside it), then the device line
    last.
 
 Float32 comparisons run with TF32 off (``torch.backends.cudnn.allow_tf32``
@@ -291,12 +318,21 @@ from ball_action_spotting_torch.models.effnetv2 import (
     BatchNormAct,
     BlockDef,
     EfficientNetV2Features,
+    same_pad,
     set_dropout_generator,
 )
 from ball_action_spotting_torch.models.fold_bn import fold_bn_state_dict
+from ball_action_spotting_torch.models.quantize import (
+    QuantConv,
+    abs_max,
+    activation_scale,
+    quantize,
+    weight_scale,
+)
 from ball_action_spotting_torch.ops import KERNELS
 from ball_action_spotting_torch.ops import dwconv3d as dw_ops
 from ball_action_spotting_torch.ops import gem as gem_ops
+from ball_action_spotting_torch.ops import int8_conv as int8_ops
 from ball_action_spotting_torch.ops import warp as warp_ops
 from ball_action_spotting_torch.native import build_all
 from ball_action_spotting_torch.ops.augment import (
@@ -315,6 +351,7 @@ from ball_action_spotting_torch.ops.gem import (
     gem_pool_partial_reference,
     gem_pool_reference,
 )
+from ball_action_spotting_torch.ops.int8_conv import int8_conv2d, int8_conv2d_reference
 from ball_action_spotting_torch.ops.losses import FocalLoss, build_loss
 from ball_action_spotting_torch.ops.mixup import Mixup, make_mixup_fn
 from ball_action_spotting_torch.parallel import multihost
@@ -331,6 +368,7 @@ from ball_action_spotting_torch.predict.export import (
 )
 from ball_action_spotting_torch.predict.fused import FusedFoldsPredictor
 from ball_action_spotting_torch.predict.multistream import (
+    DeviceStateMultiStreamPredictor,
     MultiStreamPredictor,
     device_state_tick_ms,
     device_tick_ms,
@@ -1414,17 +1452,19 @@ def training(dev, card: str, keep_dir: Path) -> dict:
 
 def path_launches() -> dict:
     """The kernels' counts since the last ``reset_counts``, the warp's by
-    pass and GeM's band-partial launches apart."""
+    pass and GeM's band-partial launches apart, and the int8 convs' calls
+    of ``torch._int_mm``."""
     return {**{k.name: k.launches for k in KERNELS},
             "warp_H": warp_ops.KERNEL.launches_by.get("H", 0),
             "warp_V": warp_ops.KERNEL.launches_by.get("V", 0),
-            "gem_partial": gem_ops.KERNEL.launches_by.get(gem_ops.PARTIAL, 0)}
+            "gem_partial": gem_ops.KERNEL.launches_by.get(gem_ops.PARTIAL, 0),
+            "int_mm": int8_ops.INT_MM.launches}
 
 
 def counted(name: str, launches: dict, fn):
     """Run ``fn`` with the launch counters set to 0 just before; record its
     path's counts under ``name``."""
-    for k in KERNELS:
+    for k in (*KERNELS, int8_ops.INT_MM):
         k.reset_counts()
     out = fn()
     torch.cuda.synchronize()
@@ -3861,6 +3901,521 @@ def spatial(dev, card: str, weights, video: np.ndarray) -> tuple[dict, dict]:
     return launches, rows
 
 
+# -------------------------------------------------------------- phase 12 ---
+
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
+# The flagship's five k×k int8 convs at a TTA-on chunk of feature carry
+# (2·CHUNK stacks): (N, H, W, C_in, C_out, k, stride) of each conv's input.
+INT8_SHAPES = {
+    "int8_conv_blocks_0_0": (2 * CHUNK, 368, 640, 32, 16, 3, 1),
+    "int8_conv_blocks_1_0": (2 * CHUNK, 368, 640, 16, 64, 3, 2),
+    "int8_conv_blocks_1_1": (2 * CHUNK, 184, 320, 32, 128, 3, 1),
+    "int8_conv_blocks_2_0": (2 * CHUNK, 184, 320, 32, 128, 3, 2),
+    "int8_conv_blocks_2_1": (2 * CHUNK, 92, 160, 48, 192, 3, 1),
+}
+# Two of the 36 1×1 convs, which go through torch._int_mm: the largest M
+# (blocks_1_0.conv_pwl, 64 → 32 at 184×320) and the largest K
+# (blocks_5_7.conv_pwl, 1152 → 192 at 23×40).
+INT8_MM_SHAPES = {
+    "int8_matmul_blocks_1_0_pwl": (2 * CHUNK, 184, 320, 64, 32, 1, 1),
+    "int8_matmul_blocks_5_7_pwl": (2 * CHUNK, 23, 40, 1152, 192, 1, 1),
+}
+INT8_SLICE = 16  # images per float64 slice of the plain version
+# The int8 conv's edge shapes through the op's CUDA route, each against the
+# plain version, exactly: (N, H, W, C, O, k, stride), the output dtype, the
+# byte offset of x_q, and the route the shape takes. Ragged row and column
+# tiles (H 23, W 40); odd H and W at stride 2 and a part channel tile (O
+# 24); C 8 and C 24, padded to 16 and 32 by the route; a 1×1 at stride 2 and
+# a 1×1 of 8 rows (M ≤ 16, which _int_mm refuses) on the kernel at k 1; an
+# odd O (single-channel stores) with int32 sums; C 80 (two passes, 64 + 16
+# channels) and O 72 (two channel tiles); the 1×1 at K 1152 on the kernel
+# (18 passes); k 5; an x_q one byte past a 16-byte boundary (the route
+# copies it); and a 1×1 through _int_mm.
+INT8_EDGE_CASES = [
+    ((2, 23, 40, 16, 16, 3, 1), torch.bfloat16, 0, "kernel"),
+    ((3, 9, 33, 48, 24, 3, 2), torch.float32, 0, "kernel"),
+    ((2, 11, 13, 8, 8, 3, 1), torch.float16, 0, "kernel"),
+    ((2, 9, 10, 24, 40, 1, 2), torch.bfloat16, 0, "kernel"),
+    ((1, 2, 4, 16, 16, 1, 1), torch.bfloat16, 0, "kernel"),
+    ((2, 12, 20, 32, 17, 3, 1), torch.int32, 0, "kernel"),
+    ((2, 15, 17, 80, 72, 3, 2), torch.bfloat16, 0, "kernel"),
+    ((1, 3, 4, 1152, 192, 1, 1), torch.bfloat16, 0, "kernel"),
+    ((2, 13, 21, 32, 32, 5, 2), torch.float32, 0, "kernel"),
+    ((2, 10, 12, 32, 64, 3, 1), torch.bfloat16, 1, "kernel"),
+    ((4, 23, 40, 96, 24, 1, 1), torch.bfloat16, 0, "int_mm"),
+]
+
+
+def bound_int8(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int8_inputs(dev, shape: tuple, seed: int, offset: int = 0):
+    """Seeded int8 x_q (N, H, W, C) (``offset`` bytes into its buffer),
+    w_q (O, k, k, C), a float32 scale of the size s_x · s_w takes, and the
+    TF SAME pads."""
+    n, h, w, c, o, k, s = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flat = torch.randint(-127, 128, (n * h * w * c + offset,), generator=g, device=dev,
+                         dtype=torch.int8)
+    x_q = flat[offset:].view(n, h, w, c)
+    w_q = torch.randint(-127, 128, (o, k, k, c), generator=g, device=dev, dtype=torch.int8)
+    scale = torch.rand((o,), generator=g, device=dev) * 1e-4 + 1e-6
+    return x_q, w_q, scale, (*same_pad(h, k, s), *same_pad(w, k, s))
+
+
+def int8_plain_slices(x_q, w_q, scale, stride, pads, out_dtype):
+    """The plain version over the batch in slices of ``INT8_SLICE`` images
+    (float64 at full batch would not fit beside the kernel's tensors)."""
+    for b0 in range(0, x_q.shape[0], INT8_SLICE):
+        yield b0, int8_conv2d_reference(x_q[b0:b0 + INT8_SLICE], w_q, scale, stride, *pads,
+                                        out_dtype)
+
+
+def int8_exact(name: str, out: torch.Tensor, x_q, w_q, scale, stride, pads) -> None:
+    """``out`` against the plain version, slice by slice: every element
+    equal, or the run fails."""
+    for b0, ref in int8_plain_slices(x_q, w_q, scale, stride, pads, out.dtype):
+        got = out[b0:b0 + INT8_SLICE]
+        if not torch.equal(got, ref):
+            diff = (got.double() - ref.double()).abs().max().item()
+            fail(f"{name}: the int8 conv's {out.dtype} output differs from the plain version "
+                 f"by {diff} in images {b0}..{b0 + len(ref) - 1}")
+
+
+def int8_route_counts(fn) -> tuple:
+    """(kernel launches, _int_mm calls) of one call of ``fn``."""
+    before = (int8_ops.KERNEL.launches, int8_ops.INT_MM.launches)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (int8_ops.KERNEL.launches - before[0], int8_ops.INT_MM.launches - before[1])
+
+
+def check_int8_edges(dev) -> None:
+    """The op's CUDA route against its plain version at
+    ``INT8_EDGE_CASES``: the shape's route taken, the output (and the int32
+    sums) equal to the plain version's."""
+    t0 = time.perf_counter()
+    for i, (shape, dtype, offset, route) in enumerate(INT8_EDGE_CASES):
+        x_q, w_q, scale, pads = int8_inputs(dev, shape, 100 + i, offset)
+        s = shape[-1]
+        for out_dtype in dict.fromkeys((dtype, torch.int32)):
+            out, (k_n, mm_n) = int8_route_counts(
+                lambda: int8_conv2d(x_q, w_q, scale, s, pads, out_dtype))
+            expected = (1, 0) if route == "kernel" else (0, 1)
+            if (k_n, mm_n) != expected:
+                fail(f"int8 edge {shape}: {k_n} kernel launches and {mm_n} _int_mm calls, "
+                     f"expected {expected}")
+            int8_exact(f"int8 edge {shape} {out_dtype}", out, x_q, w_q, scale, s, pads)
+    log({"check": "int8_conv_edges", "cases": len(INT8_EDGE_CASES), "max_abs_diff": 0.0,
+         "seconds": time.perf_counter() - t0})
+
+
+def check_int8(dev, name: str, shape: tuple, seed: int) -> dict:
+    """One flagship k×k conv of ``INT8_SHAPES``: the kernel's int32 sums and
+    bf16 output equal to the plain version's, then its times beside the
+    bound, the plain version's (in slices) and cuDNN's bf16 conv of the same
+    shape (the yardstick: no PyTorch call computes an s8 k×k conv)."""
+    n, h, w, c, o, k, s = shape
+    x_q, w_q, scale, pads = int8_inputs(dev, shape, seed)
+    call = lambda dtype=torch.bfloat16: int8_conv2d(x_q, w_q, scale, s, pads, dtype)  # noqa: E731
+    sums, (launches, _) = int8_route_counts(lambda: call(torch.int32))
+    int8_exact(f"{name} sums", sums, x_q, w_q, scale, s, pads)
+    del sums
+    out, _ = int8_route_counts(call)
+    int8_exact(f"{name} bf16", out, x_q, w_q, scale, s, pads)
+    ho, wo = out.shape[1:3]
+    nbytes = x_q.numel() + w_q.numel() + out.numel() * 2 + o * 4
+    bound_ms, bound_by = bound_int8(nbytes, 2 * n * ho * wo * o * k * k * c)
+    row = {
+        "name": name, "path": "int8 inference, TTA on", "shape": list(shape),
+        "dtype": "int8 -> bfloat16", "max_abs_diff": 0.0, "launches_per_call": launches,
+        "kernel_ms": median_ms(call),
+        "direct_ms": median_ms(lambda: int8_ops.int8_conv2d_cuda(x_q, w_q, scale, s, pads,
+                                                                 torch.bfloat16)),
+        "device_ms": device_ms_events(call, int8_ops.KERNEL),
+        "device_ms_method": "cuda_events_behind_sleep",
+        "plain_ms": median_ms(lambda: list(int8_plain_slices(x_q, w_q, scale, s, pads,
+                                                             torch.bfloat16)),
+                              reps=2, warmup=1),
+        "library_ms": None,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    del out
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xb = torch.randn((n, c, h, w), generator=g, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    wb = torch.randn((o, c, k, k), generator=g, device=dev).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    row["cudnn_bf16_ms"] = median_ms(lambda: F.conv2d(xb, wb, stride=s, padding=k // 2))
+    del xb, wb
+    torch.cuda.empty_cache()
+    log(row)
+    return row
+
+
+def check_int8_matmul(dev, name: str, shape: tuple, seed: int) -> dict:
+    """A flagship 1×1 conv of ``INT8_MM_SHAPES`` through the op's
+    ``_int_mm`` route, exact against the plain version; ms of the route,
+    of ``_int_mm`` alone and of the kernel at k 1 on the same inputs."""
+    n, h, w, c, o, k, s = shape
+    x_q, w_q, scale, pads = int8_inputs(dev, shape, seed)
+    out, (k_n, mm_n) = int8_route_counts(
+        lambda: int8_conv2d(x_q, w_q, scale, 1, pads, torch.bfloat16))
+    if (k_n, mm_n) != (0, 1):
+        fail(f"{name}: {k_n} kernel launches and {mm_n} _int_mm calls, expected (0, 1)")
+    int8_exact(name, out, x_q, w_q, scale, 1, pads)
+    kernel = int8_ops.int8_conv2d_cuda(x_q, w_q, scale, 1, pads, torch.bfloat16)
+    if not torch.equal(kernel, out):
+        fail(f"{name}: the kernel at k 1 differs from the _int_mm route")
+    del out, kernel
+    x2, w2 = x_q.reshape(-1, c), w_q.reshape(o, c).t()
+    nbytes = x_q.numel() + w_q.numel() + n * h * w * o * 2 + o * 4
+    bound_ms, bound_by = bound_int8(nbytes, 2 * n * h * w * o * c)
+    row = {
+        "name": name, "path": "int8 inference, TTA on", "shape": list(shape),
+        "dtype": "int8 -> bfloat16", "max_abs_diff": 0.0,
+        "route_ms": median_ms(lambda: int8_conv2d(x_q, w_q, scale, 1, pads, torch.bfloat16)),
+        "int_mm_ms": median_ms(lambda: torch._int_mm(x2, w2)),
+        "kernel_k1_ms": median_ms(lambda: int8_ops.int8_conv2d_cuda(x_q, w_q, scale, 1, pads,
+                                                                    torch.bfloat16)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    torch.cuda.empty_cache()
+    log(row)
+    return row
+
+
+def int8_kernel_checks(dev) -> dict:
+    """Phase 12's kernel rows: the edge shapes, the five k×k shapes and the
+    two 1×1 shapes."""
+    t0 = time.perf_counter()
+    check_int8_edges(dev)
+    rows = {name: check_int8(dev, name, shape, 40 + i)
+            for i, (name, shape) in enumerate(INT8_SHAPES.items())}
+    rows.update({name: check_int8_matmul(dev, name, shape, 60 + i)
+                 for i, (name, shape) in enumerate(INT8_MM_SHAPES.items())})
+    log({"phase": "int8_kernel_checks_done", "seconds": time.perf_counter() - t0})
+    return rows
+
+
+INT8_K_CONVS, INT8_MM_CONVS = 5, 36  # the flagship encoder's quantized convs, k×k and 1×1
+INT8_DRIFT = 0.15    # JAX's bound of the int8 sigmoids' drift (tests/test_quantize.py)
+# Two int8 paths whose bf16 convs differ upstream (cuDNN plans for other
+# batch and window shapes, C2) move activations across rounding boundaries,
+# each flip one int8 step, through 41 layers: held to JAX's drift bound
+# (on an H100 80GB HBM3 at 700 W, sp 1×2 against unsplit read 0.032, the
+# drift from bf16 0.037). The CPU tests hold the same paths to JAX in
+# float32.
+INT8_PATHS_ATOL = INT8_DRIFT
+INT8_STREAM_FRAMES = 96
+INT8_TICK_BUCKETS = (1, 8, 16)
+INT8_PROFILE_OPS = ("bas_torch::int8_conv2d", "aten::_int_mm", "aten::linalg_vector_norm",
+                    "aten::div_", "aten::round_", "aten::clamp_", "aten::mul")
+
+
+def quant_layers(model) -> list:
+    """[(name, module)] of the model's quantized convs (the grouped ones run
+    the compute-dtype conv)."""
+    return [(name, m) for name, m in model.named_modules()
+            if isinstance(m, QuantConv) and m.groups == 1]
+
+
+def hold_quant_layer(name: str, mod, x: torch.Tensor, out: torch.Tensor) -> None:
+    """One quantized conv's output against the plain version on its input:
+    the weight and activation quantized as ``QuantConv`` quantizes them, the
+    s8 product by ``int8_conv2d_reference`` (float64) in slices of the
+    batch, every element equal."""
+    w_q, s_w = weight_scale(mod.weight)
+    s_x = activation_scale(abs_max(x))
+    k, s = w_q.shape[1], mod.stride
+    pads = (*same_pad(x.shape[2], k, s), *same_pad(x.shape[3], k, s))
+    for b0 in range(0, x.shape[0], INT8_SLICE):
+        x_q = quantize(x[b0:b0 + INT8_SLICE], s_x).permute(0, 2, 3, 1)
+        ref = int8_conv2d_reference(x_q, w_q, s_x * s_w, s, *pads, x.dtype)
+        if not torch.equal(out[b0:b0 + INT8_SLICE].permute(0, 2, 3, 1), ref):
+            diff = (out[b0:b0 + INT8_SLICE].permute(0, 2, 3, 1).float() - ref.float())
+            fail(f"int8 layer {name} differs from the plain version by {diff.abs().max().item()}")
+
+
+def int8_hooked_chunk(predictor, frames: np.ndarray) -> int:
+    """One chunk program of the int8 engine with a forward hook on each of
+    its quantized convs that holds the layer against the plain version
+    (``hold_quant_layer``); returns the count of layers held."""
+    layers = quant_layers(predictor.model)
+    held = []
+
+    def hook(name):
+        def check(mod, args, out):
+            hold_quant_layer(name, mod, args[0], out)
+            held.append(name)
+        return check
+
+    with torch.inference_mode():
+        new, carry = staged_chunk(predictor, frames)
+        handles = [m.register_forward_hook(hook(name)) for name, m in layers]
+        try:
+            predictor.chunk_features(new, carry)
+            torch.cuda.synchronize()
+        finally:
+            for h in handles:
+                h.remove()
+    if sorted(held) != sorted(name for name, _ in layers):
+        fail(f"the hooks held {len(held)} of {len(layers)} quantized layers")
+    return len(held)
+
+
+@contextlib.contextmanager
+def plain_int8():
+    """The int8 convs' s8 product by the plain version (float64, exact) on
+    any device, in place of the kernel and ``_int_mm``."""
+    op = int8_ops.int8_conv2d_op
+    int8_ops.int8_conv2d_op = int8_conv2d_reference
+    try:
+        yield
+    finally:
+        int8_ops.int8_conv2d_op = op
+
+
+def int8_features(dev, bf16, int8, frames: np.ndarray, count: int = 32) -> dict:
+    """The int8 encoder's features on ``count`` stacks of the video against
+    the same encoder with the plain s8 product (every element equal) and
+    against the bf16 encoder (the correlation, logged; JAX's test holds its
+    tiny arch above 0.99, which ``tests/test_torch_quantize.py`` holds the
+    port to, while 41 per-tensor quantized layers of the seeded flagship
+    drift further)."""
+    reach = (bf16.model_stack_size - 1) * bf16.frame_stack_step
+    with torch.inference_mode():
+        x = bf16.normalize_stacks(bf16._stacks(torch.from_numpy(frames[:count + reach]).to(dev),
+                                               count))
+        ref = bf16.model.forward_2d_nhwc(x).float()
+        got = int8.model.forward_2d_nhwc(x).float()
+        with plain_int8():
+            plain = int8.model.forward_2d_nhwc(x).float()
+    if not torch.equal(got, plain):
+        fail(f"int8 encoder features differ from the plain s8 product's by "
+             f"{(got - plain).abs().max().item()}")
+    corr = float(np.corrcoef(ref.flatten().cpu().numpy(), got.flatten().cpu().numpy())[0, 1])
+    rel = ((got - ref).abs().mean() / ref.abs().mean()).item()
+    row = {"check": "int8_encoder_features", "stacks": count, "equal_to_plain": True,
+           "corr_vs_bf16": corr, "mean_rel_drift_vs_bf16": rel}
+    log(row)
+    return row
+
+
+def int8_profile(predictor, frames: np.ndarray, chunks: int = 2) -> dict:
+    """Device ms a chunk program of the int8 engine by op (torch.profiler's
+    device time under each op of ``INT8_PROFILE_OPS``: the s8 op, _int_mm,
+    the abs-max, the quantize passes and the scale products), its busy ms,
+    and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        new, carry = staged_chunk(predictor, frames)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(chunks):
+                _, carry = predictor.chunk_features(new, carry)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / chunks
+    busy_ms, summed_ms, top = device_time(prof, chunks, 120, 12)
+    by_op = {e.key: e.device_time_total / 1e3 / chunks for e in prof.key_averages()
+             if e.key in INT8_PROFILE_OPS}
+    kernel_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if "int8_conv_kernel" in e.key) / 1e3 / chunks
+    return {"tta": predictor.tta, "wall_ms_per_chunk": wall_ms,
+            "device_busy_ms_per_chunk": busy_ms, "kernel_sum_ms_per_chunk": summed_ms,
+            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "int8_conv_kernel_ms_per_chunk": kernel_ms, "device_ms_by_op": by_op, "top": top}
+
+
+def int8_flagship(dev, card: str, weights, frames: np.ndarray, raw_bf16: np.ndarray,
+                  launches: dict) -> dict:
+    """The flagship int8 engine (bf16, chunk 128, feature carry) over the
+    inference phase's video: the main path TTA on with the launch counters
+    at 0 (5 kernel launches and 36 _int_mm calls an encoder call: 3 chunk
+    programs and the bootstrap), the 41 layers of a TTA-off chunk held
+    against the plain version, the drift from bf16 (the sigmoids within
+    JAX's bound; the encoder features equal to the plain s8 product's, their
+    correlation with bf16 logged), device and end-to-end fps against bf16
+    in turns, and a chunk profile TTA off and on."""
+    expected = len(frames) - 30
+
+    def engine(**kw):
+        return ChunkedVideoPredictor(weights=weights, device=dev, chunk_size=CHUNK,
+                                     dw3d_use_kernel=True, **kw)
+
+    main = engine(tta=True, conv_int8=True)
+    layers = quant_layers(main.model)
+    if len(layers) != INT8_K_CONVS + INT8_MM_CONVS:
+        fail(f"the flagship int8 encoder has {len(layers)} quantized convs")
+    run_video(main, frames[:CHUNK + 30])  # warm-up
+    idx, raw, secs = counted("int8_inference", launches, lambda: run_video(main, frames))
+    check_outputs("int8 main path", idx, raw, expected)
+    got = launches["int8_inference"]
+    calls = CHUNKS + 1  # the chunk programs and the bootstrap
+    if (got["int8_conv"] != INT8_K_CONVS * calls or got["int_mm"] != INT8_MM_CONVS * calls
+            or got["gem"] != CHUNKS or got["dwconv3d"] != CHUNKS * DW_PER_CHUNK):
+        fail(f"the int8 main path launched {got}, expected {INT8_K_CONVS * calls} int8 convs, "
+             f"{INT8_MM_CONVS * calls} _int_mm, {CHUNKS} GeM, {CHUNKS * DW_PER_CHUNK} dwconv3d")
+    drift = agree("int8_vs_bf16_tta_on", raw, raw_bf16, INT8_DRIFT)
+    out = {"card": card, "drift_vs_bf16_tta_on": drift,
+           "prediction_corr_vs_bf16": float(np.corrcoef(raw.ravel(), raw_bf16.ravel())[0, 1]),
+           "launches": got}
+    t0 = time.perf_counter()
+    off = engine(conv_int8=True)
+    out["layers_held_exactly"] = int8_hooked_chunk(off, frames)
+    out["hooked_chunk_seconds"] = time.perf_counter() - t0
+    out["encoder_features"] = int8_features(dev, engine(), off, frames)
+    fps = {}
+    for tta in (False, True):
+        pair = {"bf16": engine(tta=tta), "int8": engine(tta=tta, conv_int8=True)}
+        for name, e in pair.items():
+            run_video(e, frames[:CHUNK + 30])
+        for name in ("bf16", "int8", "int8", "bf16"):  # in turns
+            _, _, secs = run_video(pair[name], frames)
+            key = f"{name}_tta_{'on' if tta else 'off'}"
+            fps.setdefault(f"{key}_end_to_end_fps", []).append(expected / secs)
+            fps.setdefault(f"{key}_device_fps", []).append(device_fps(pair[name], frames))
+        out[f"profile_int8_tta_{'on' if tta else 'off'}"] = int8_profile(pair["int8"], frames)
+        del pair
+        torch.cuda.empty_cache()
+    out["fps"] = {k: statistics.mean(v) for k, v in fps.items()}
+    out["fps_runs"] = fps
+    for tta in ("off", "on"):
+        for kind in ("device", "end_to_end"):
+            out["fps"][f"int8_over_bf16_{kind}_tta_{tta}"] = (
+                out["fps"][f"int8_tta_{tta}_{kind}_fps"] / out["fps"][f"bf16_tta_{tta}_{kind}_fps"])
+    log({"phase": "int8_flagship", **out})
+    return out
+
+
+def int8_engines(dev, card: str, weights, frames: np.ndarray, launches: dict) -> dict:
+    """int8 through the other engines at the flagship's width, each path
+    with the launch counters at 0: ``StreamingPredictor`` against the
+    chunked engine (their encoder batches differ, so their scales do: held
+    to JAX's drift bound); the device-state engine on a feed of 4 streams
+    and its tick ms at ``INT8_TICK_BUCKETS`` beside the 40-ms limit; the sp
+    1×2 grid of the one card (or two cards) against the unsplit frame-carry
+    engine; the frame-carry engine exported with ``torch.export`` and
+    reloaded, against the live engine (bf16's tolerance: the same program);
+    the data-share grid on the visible cards (the one card twice) against
+    one device. The grids are held to ``INT8_PATHS_ATOL``."""
+    out = {"card": card}
+    kw = dict(weights=weights, device=dev, tta=True, conv_int8=True)
+    n = INT8_STREAM_FRAMES
+    _, c_raw, _ = run_video(ChunkedVideoPredictor(chunk_size=32, **kw), frames[:n])
+    streaming = StreamingPredictor(**kw)
+    get_raw_predictions(streaming, FramesSource(frames[:40]), 40)  # warm-up
+    s_idx, s_raw = counted("int8_streaming", launches, lambda: get_raw_predictions(
+        streaming, FramesSource(frames[:n]), n))
+    check_outputs("int8 streaming", s_idx, s_raw, n - SERVE_WINDOW - 1)
+    out["streaming_vs_chunked"] = agree("int8_streaming_vs_chunked", s_raw, c_raw,
+                                        INT8_PATHS_ATOL)
+    del streaming
+
+    device_state = DeviceStateMultiStreamPredictor(slot_capacity=max(INT8_TICK_BUCKETS), **kw)
+    device_state.warmup(4)
+
+    def feed():
+        preds = []
+        for i in range(40):
+            preds += [p for _, p, _ in _to_host(device_state.predict_batch(
+                [(s, frames[(i + 7 * s) % len(frames)], i) for s in range(4)])) if p is not None]
+        return preds
+
+    preds = counted("int8_serve_device", launches, feed)
+    if len(preds) != 4 * (40 - SERVE_WINDOW + 1) or not all(np.isfinite(p).all() for p in preds):
+        fail(f"int8 device-state feed: {len(preds)} predictions")
+    ticks = {b: device_state_tick_ms(device_state, b)[0] for b in INT8_TICK_BUCKETS}
+    out["device_state_tick_ms"] = ticks
+    out["ticks_within_40_ms"] = {b: ms <= REALTIME_MS for b, ms in ticks.items()}
+    del device_state
+    torch.cuda.empty_cache()
+
+    one = ChunkedVideoPredictor(chunk_size=CHUNK, carry_features=False, dw3d_use_kernel=True, **kw)
+    _, raw_one, _ = run_video(one, frames)
+    devices = sp_grids(dev)[0][2][:2]
+    sp = ChunkedVideoPredictor(weights=weights, chunk_size=CHUNK, tta=True, conv_int8=True,
+                               mesh=make_mesh(1, 2, devices), spatial=True)
+    run_video(sp, frames[:CHUNK + 30])
+    _, raw_sp, _ = counted("int8_sp_1x2", launches, lambda: run_video(sp, frames))
+    out["sp_1x2_vs_unsplit"] = agree("int8_sp_1x2_vs_unsplit", raw_sp, raw_one, INT8_PATHS_ATOL)
+    del sp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        art = export_chunked_predictor(one, Path(tmp) / "int8.bastorx")
+        sealed = ExportedChunkPredictor(art, device=dev)
+        out["export_seconds"] = time.perf_counter() - t0
+        nodes = op_nodes(sealed.program)
+        targets = [str(nd.target) for nd in sealed.program.graph.nodes
+                   if nd.op == "call_function"]
+        nodes["int8_conv2d"] = targets.count("bas_torch.int8_conv2d.default")
+        if nodes != {"gem_pool": 1, "dwconv3d": DW_PER_CHUNK, "warp_resample": 0,
+                     "int8_conv2d": INT8_K_CONVS + INT8_MM_CONVS}:
+            fail(f"the exported int8 program holds {nodes} custom-op nodes")
+        sealed.predict_video(iter(enumerate(frames[:CHUNK + 30])), CHUNK + 30)
+        _, raw_sealed = counted("int8_export", launches, lambda: sealed.predict_video(
+            iter(enumerate(frames)), len(frames)))
+        out["export_vs_live"] = agree("int8_export_vs_live", raw_sealed, raw_one, PRED_BF16_ATOL)
+        out["export_op_nodes"] = nodes
+        del sealed
+    cards = parallel_devices(dev)
+    grid = ChunkedVideoPredictor(weights=weights, chunk_size=CHUNK, tta=True, conv_int8=True,
+                                 carry_features=False, dw3d_use_kernel=True,
+                                 mesh=make_mesh(len(cards), 1, cards))
+    run_video(grid, frames[:CHUNK + 30])
+    _, raw_grid, _ = counted("int8_data_parallel", launches, lambda: run_video(grid, frames))
+    on = launches_on()
+    out["data_parallel_vs_one"] = agree("int8_data_parallel_vs_one_device", raw_grid, raw_one,
+                                        INT8_PATHS_ATOL)
+    if any(on["int8_conv"].get(str(d), 0) < 1 for d in cards):
+        fail(f"the int8 data-share grid did not launch the kernel on every card: {on}")
+    out["data_parallel_launches_on"] = on
+    del one, grid
+    torch.cuda.empty_cache()
+    for path in ("int8_streaming", "int8_serve_device", "int8_sp_1x2", "int8_export",
+                 "int8_data_parallel"):
+        counts = launches[path]
+        if counts["int8_conv"] < 1 or counts["gem"] + counts["gem_partial"] < 1 \
+                or counts["dwconv3d"] < 1:
+            fail(f"{path} did not launch the int8 kernel, GeM and dwconv3d: {counts}")
+    log({"phase": "int8_engines", **out})
+    return out
+
+
+def int8_phase(dev, card: str, weights, video: np.ndarray, raw_bf16: np.ndarray):
+    """Phase 12: the int8 encoder convs at the flagship's width: the kernel
+    rows, the flagship int8 engine, the other engines; returns each path's
+    launches and the kernel rows."""
+    t0 = time.perf_counter()
+    launches: dict = {}
+    rows = int8_kernel_checks(dev)
+    torch.cuda.empty_cache()
+    flagship_out = int8_flagship(dev, card, weights, video, raw_bf16, launches)
+    engines_out = int8_engines(dev, card, weights, video, launches)
+    log({"phase": "int8", "card": card, "fps": flagship_out["fps"],
+         "seconds": time.perf_counter() - t0, "engines": engines_out})
+    return launches, rows
+
+
+def int8_sources(launches: dict) -> dict:
+    """The kernels line's phase-12 rows: the s8 kernel at the five k×k
+    shapes, launched on the int8 main path and every int8 engine's path.
+    It replaces no Pallas kernel: the JAX package leaves the s8 product to
+    XLA's convolution (``models/quantize.py:92``)."""
+    paths = {"int8_inference": launches["int8_inference"],
+             **{k: v for k, v in launches.items() if k.startswith("int8_")
+                and k != "int8_inference"}}
+    src = ("int8_conv", "ball_action_spotting_torch/csrc/int8_conv.cu",
+           "ball_action_spotting_tpu/models/quantize.py:92", paths)
+    return {name: src for name in INT8_SHAPES}
+
+
 def device_line() -> dict:
     return {"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}
@@ -3885,6 +4440,7 @@ def kernels_line(sources: dict, rows: dict) -> list:
             "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
+            **({"cudnn_bf16_ms": row["cudnn_bf16_ms"]} if "cudnn_bf16_ms" in row else {}),
         })
     if any(not (math.isfinite(k["ms"]) and math.isfinite(k["device_ms"])) for k in kernels):
         fail("a kernel time is not finite")
@@ -3921,6 +4477,25 @@ def spatial_alone(dev, card: str) -> None:
     log(device_line())
 
 
+def int8_alone(dev, card: str) -> None:
+    """``--phase int8``: phase 12 after the kernels' build, on the inference
+    phase's seeded weights and video (its bf16 main path run here for the
+    drift), and its kernel rows."""
+    video = flagship_video()
+    weights = (flagship_weights(dev, video), PARAMS)
+    main = ChunkedVideoPredictor(weights=weights, device=dev, chunk_size=CHUNK, tta=True,
+                                 dw3d_use_kernel=True)
+    run_video(main, video[:CHUNK + 30])
+    _, raw_main, _ = run_video(main, video)
+    del main
+    t0 = time.perf_counter()
+    launches, rows = int8_phase(dev, card, weights, video, raw_main)
+    log({"phase": "int8_done", "seconds": time.perf_counter() - t0, "launches": launches})
+    log(card)
+    log({"kernels": kernels_line(int8_sources(launches), rows)})
+    log(device_line())
+
+
 def model_parallel_alone(dev, card: str) -> None:
     """``--phase model_parallel``: phase 10 after the kernels' build, on
     the inference phase's seeded weights and video."""
@@ -3938,9 +4513,10 @@ def main() -> None:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phase", choices=("all", "model_parallel", "spatial"), default="all",
-                        help="model_parallel, spatial: build the kernels, then run phase 10 "
-                             "or 11 alone")
+    parser.add_argument("--phase", choices=("all", "model_parallel", "spatial", "int8"),
+                        default="all",
+                        help="model_parallel, spatial, int8: build the kernels, then run phase "
+                             "10, 11 or 12 alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -3956,6 +4532,8 @@ def main() -> None:
         return model_parallel_alone(dev, card)
     if args.phase == "spatial":
         return spatial_alone(dev, card)
+    if args.phase == "int8":
+        return int8_alone(dev, card)
 
     t0 = time.perf_counter()
     # the inference main path runs hflip TTA, so its shapes are the
@@ -4018,6 +4596,12 @@ def main() -> None:
     sp_launches, sp_rows = spatial(dev, card, weights, video)
     rows.update(sp_rows)
     log({"phase": "spatial_done", "seconds": time.perf_counter() - t0})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    int8_launches, int8_rows = int8_phase(dev, card, weights, video, raw_main)
+    rows.update(int8_rows)
+    log({"phase": "int8_done", "seconds": time.perf_counter() - t0})
 
     # one row per kernel and main path; the warp's H and V passes, two
     # launches of one kernel at different shapes and access patterns, each
@@ -4079,6 +4663,7 @@ def main() -> None:
                                {"multichan": family_launches["multichan"]}),
     }
     sources.update(spatial_sources(sp_launches))
+    sources.update(int8_sources(int8_launches))
     kernels = kernels_line(sources, rows)
     log(card)
     log({"kernels": kernels})

@@ -9,8 +9,10 @@ that has only PyTorch; there, run it without the repo's ``conftest.py``
 Without a GPU every test skips. Tolerances: float32 (TF32 off) atol 1e-5
 on [0, 1] images and on the depthwise conv's unit-scale sums; bfloat16 and
 float16 one rounding step, 2^-7·max|ref|; GeM 1e-4·max|ref| (float32 sums
-in another order, and the special-function unit's log2 and exp2). The edge
-shapes and tolerances are ``chip_smoke.py``'s."""
+in another order, and the special-function unit's log2 and exp2); the int8
+conv exactly (its int32 sums and their dequantized values are the plain
+version's, element for element). The edge shapes and tolerances are
+``chip_smoke.py``'s."""
 
 import math
 
@@ -22,6 +24,9 @@ from ball_action_spotting_torch.ops.dwconv3d import KERNEL as DW_KERNEL
 from ball_action_spotting_torch.ops.dwconv3d import dwconv3d, dwconv3d_reference
 from ball_action_spotting_torch.ops.gem import KERNEL as GEM_KERNEL
 from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_reference
+from ball_action_spotting_torch.ops.int8_conv import INT_MM
+from ball_action_spotting_torch.ops.int8_conv import KERNEL as INT8_KERNEL
+from ball_action_spotting_torch.ops.int8_conv import int8_conv2d, int8_conv2d_reference
 from ball_action_spotting_torch.ops.warp import KERNEL as WARP_KERNEL
 from ball_action_spotting_torch.ops.warp import (
     resample_columns,
@@ -35,7 +40,9 @@ from chip_smoke import (
     DW_TOL,
     GEM_EDGE_CASES,
     GEM_TOL,
+    INT8_EDGE_CASES,
     WARP_EDGE_CASES,
+    int8_inputs,
     route_input,
     warp_edge_inputs,
     warp_tolerance,
@@ -162,6 +169,23 @@ def test_dwconv3d_route_shapes(cuda, shape, dtype, layout, launches):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,offset,route", INT8_EDGE_CASES,
+                         ids=lambda case: str(case))
+def test_int8_conv_edge_shapes(cuda, shape, dtype, offset, route):
+    """The s8 conv's CUDA route (the kernel, or ``_int_mm`` for a 1×1 it
+    takes) against the plain version, exactly, in int32 and ``dtype``."""
+    x_q, w_q, scale, pads = int8_inputs(cuda, shape, 7, offset)
+    for out_dtype in dict.fromkeys((dtype, torch.int32)):
+        INT8_KERNEL.reset_counts()
+        INT_MM.reset_counts()
+        out = int8_conv2d(x_q, w_q, scale, shape[-1], pads, out_dtype)
+        torch.cuda.synchronize()
+        assert (INT8_KERNEL.launches, INT_MM.launches) == ((1, 0) if route == "kernel" else (0, 1))
+        ref = int8_conv2d_reference(x_q, w_q, scale, shape[-1], *pads, out_dtype)
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
 def test_custom_ops_launch_the_kernels(cuda):
     """Each ``bas_torch`` op launches its kernel on a CUDA tensor (one
     counted launch per call) and passes ``torch.library.opcheck`` there."""
@@ -176,6 +200,8 @@ def test_custom_ops_launch_the_kernels(cuda):
         (DW_KERNEL, torch.ops.bas_torch.dwconv3d, (x5, k)),
         (WARP_KERNEL, torch.ops.bas_torch.warp_resample,
          (img, torch.ones(2, device=cuda), torch.zeros(2, 5, device=cuda), 4, "highest", 2)),
+        (INT8_KERNEL, torch.ops.bas_torch.int8_conv2d,
+         (*int8_inputs(cuda, (2, 9, 11, 16, 24, 3, 2), 1)[:3], 2, 0, 1, 1, 1, torch.bfloat16)),
     ]
     for kernel, op, args in calls:
         kernel.reset_counts()

@@ -71,7 +71,8 @@ NEW_MODULES = ("predict.fused", "predict.export", "predict.host_loop", "parallel
                "models.pretrained", "models.multichan_stacker", "models.classifier2d",
                "native", "data.gray_store", "utils.profiling", "cli.transcode",
                "cli.verify_data", "cli.rehearsal", "cli.visualize", "parallel.pipeline",
-               "parallel.sharding_rules", "cli.dryrun_multichip")
+               "parallel.sharding_rules", "cli.dryrun_multichip", "models.quantize",
+               "ops.int8_conv")
 
 
 def test_port_imports_no_jax():
@@ -146,3 +147,16 @@ def test_model_parallel_entry_points_need_cuda_or_cpu(tmp_path):
         Trainer(tiny_config(pipeline_parallel=2), ["a", "b"], tmp_path / "pp")
     with pytest.raises(RuntimeError, match="CUDA devices"):
         dryrun_multichip(1)
+
+
+def test_int8_engines_need_cuda_or_cpu(tmp_path):
+    """``conv_int8`` changes nothing in the device rule: every engine that
+    takes it refuses a missing CUDA device unless it is given the CPU, and
+    the int8 model builds on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is about a machine without CUDA")
+    for engine in (ChunkedVideoPredictor, StreamingPredictor, MultiStreamPredictor,
+                   DeviceStateMultiStreamPredictor):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            engine(tmp_path / "model-001-0.5.ckpt", conv_int8=True)
+    build_model("multidim_stacker", model_name="efficientnetv2_tiny", conv2d_int8=True).to("cpu")

@@ -28,6 +28,7 @@ from ball_action_spotting_torch.ops.dwconv3d import (
 )
 from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_cuda, gem_splits
 from ball_action_spotting_torch.ops.gem import wide_path as gem_wide_path
+from ball_action_spotting_torch.ops.int8_conv import int8_conv2d
 from ball_action_spotting_torch.ops.warp import resample_columns, resample_last_axis
 
 RTOL = 1e-4
@@ -130,8 +131,11 @@ def test_launch_counters_stay_zero_on_cpu():
     gem_pool(torch.rand(2, 3, 4, 8), torch.full((1,), 3.0))
     dwconv3d(torch.rand(1, 2, 3, 4, 8), torch.rand(3, 3, 3, 1, 8))
     resample_last_axis(torch.rand(2, 3, 8), torch.ones(2), torch.zeros(2, 3))
-    assert [k.name for k in KERNELS] == ["gem", "dwconv3d", "warp"]
-    assert [k.launches for k in KERNELS] == [0, 0, 0]
+    int8_conv2d(torch.ones(1, 4, 4, 16, dtype=torch.int8),
+                torch.ones(8, 3, 3, 16, dtype=torch.int8), torch.ones(8), 1, (1, 1, 1, 1),
+                torch.float32)
+    assert [k.name for k in KERNELS] == ["gem", "dwconv3d", "warp", "int8_conv"]
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
 
 
 # csrc/dwconv3d.cu stages three rows of 3 slots × W × 32 channel pairs in at
@@ -195,5 +199,5 @@ def test_cpu_wrappers_count_no_launch(case):
     else:
         img = torch.rand(2, 8, 3, generator=g).transpose(1, 2)
         assert resample_columns(img, torch.ones(2), torch.zeros(2, 8)).shape == (2, 3, 8)
-    assert [k.launches for k in KERNELS] == [0, 0, 0]
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0]
     assert all(not k.launches_by for k in KERNELS)
