@@ -3,19 +3,21 @@ JAX package's ``models/quantize.py``).
 
 ``QuantConv`` replaces the encoder's bias-free ``Conv2dSame`` with the same
 ``weight`` parameter ((O, I/groups, k, k) float32, the same state-dict key),
-so checkpoints, BN folding and the weight importers work unchanged. On each
-call it:
+so checkpoints, BN folding and the weight importers work unchanged. It:
 
 - scales the weight per output channel, ``s_w[o] = max(max|w[o]| / 127,
   1e-12)``, and rounds ``w / s_w`` to int8 in [-127, 127], from the float32
-  parameter;
-- scales the activation per tensor, ``s_x = max(max|x| / 127, 1e-12)``, and
-  rounds ``float32(x) / s_x`` to int8 in [-127, 127];
-- takes the s8 × s8 → s32 sum of the TF-SAME conv and dequantizes it,
-  ``float32(sum) · (s_x · s_w[o])`` rounded into the compute dtype
-  (``ops/int8_conv.py::int8_conv2d``, ``bas_torch::int8_conv2d``: the plain
-  version on the CPU; ``torch._int_mm`` for a 1 × 1 conv, else the
-  hand-written kernel, on the card).
+  parameter: once per weight version, device and dtype
+  (``QuantConv.quantized_weight``; again after ``load_state_dict``, BN
+  folding or a move), not on every call;
+- scales the activation per tensor on each call, ``s_x = max(max|x| / 127,
+  1e-12)``, one reduction that stays on the device;
+- hands x in the compute dtype, ``s_x``, the int8 weight and ``s_w`` to one
+  op (``ops/int8_conv.py::int8_conv2d``, ``bas_torch::int8_conv2d``): it
+  rounds ``float32(x) / s_x`` to int8 in [-127, 127], takes the s8 × s8 →
+  s32 sum of the TF-SAME conv and dequantizes it, ``float32(sum) · (s_x ·
+  s_w[o])`` rounded into the compute dtype; the plain version on the CPU,
+  one launch of a hand-written kernel on the card.
 
 The arithmetic is the JAX package's as XLA compiles it in its jitted
 programs: ``/ 127.0`` is folded into a product with the float32 reciprocal
@@ -25,12 +27,13 @@ A grouped (depthwise) conv runs the compute-dtype conv of ``Conv2dSame``.
 
 The activation scale is the max over the whole tensor that JAX's conv sees.
 On bands (spatial partitioning) it is the max over every band
-(``band_max``), and zero rows outside the image quantize to zero, so the
-bands' windows are taken from the quantized bands. Where one call's batch is
-split into data shares on several devices (the chunked engine and the
-serving mesh), ``run_shares`` runs each share's encoder in its own thread of
-one ``ScaleGroup``: every ``QuantConv`` call waits for every share's max
-and takes their max, as ``jnp.max`` over a batch sharded by GSPMD does.
+(``band_max``), and zero rows outside the image quantize to zero, so the op
+takes its windows of the float bands and quantizes them itself. Where one
+call's batch is split into data shares on several devices (the chunked
+engine and the serving mesh), ``run_shares`` runs each share's encoder in
+its own thread of one ``ScaleGroup``: every ``QuantConv`` call waits for
+every share's max and takes their max, as ``jnp.max`` over a batch sharded
+by GSPMD does.
 
 Inference only: the s8 op has no backward.
 """
@@ -44,8 +47,11 @@ import numpy as np
 import torch
 
 from ball_action_spotting_torch.models.effnetv2 import Conv2dSame, same_pad
-from ball_action_spotting_torch.ops.int8_conv import int8_conv2d
+from ball_action_spotting_torch.ops.int8_conv import int8_conv2d, quantize
 from ball_action_spotting_torch.parallel.spatial import Bands, band_max, row_op
+
+__all__ = ["QuantConv", "ScaleGroup", "abs_max", "activation_scale", "quantize", "run_shares",
+           "shared_max", "weight_scale"]
 
 T = TypeVar("T")
 
@@ -73,45 +79,62 @@ def activation_scale(amax: torch.Tensor) -> torch.Tensor:
     return (shared_max(amax) * _RECIP_127).clamp_min(_MIN_SCALE)
 
 
-def quantize(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
-    """``clip(round(float32(x) / s_x), ±127)`` as int8, in x's layout."""
-    xf = x.to(torch.float32, copy=True)
-    return xf.div_(s_x).round_().clamp_(-127, 127).to(torch.int8)
-
-
 class QuantConv(Conv2dSame):
     """Bias-free conv with on-the-fly int8 quantization (module docstring);
     NCHW in and out, like ``Conv2dSame``, with channels-last memory."""
 
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._quantized_for: tuple | None = None  # the weight's address, version, dtype, device
+        self._quantized_from: torch.Tensor | None = None  # that weight, so the address stays its
+        self._quantized: dict = {}  # device -> (w_q, s_w)
+
+    def quantized_weight(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        """``weight_scale`` of the weight on ``device``: (int8 (O, k, k, I)
+        w_q, the layout both kernels read, and float32 (O,) s_w), kept for
+        the weight's storage, version and dtype, so that ``load_state_dict``,
+        BN folding and a move (each a new storage or a new version) compute
+        it again. The cache holds the weight it was computed from: a new
+        storage cannot take that one's address while the key names it.
+        Traced into the program under ``torch.export``, and computed on
+        each call for an inference tensor (which counts no versions)."""
+        w = self.weight
+        if torch.compiler.is_compiling() or w.is_inference():
+            return weight_scale(w.to(device))
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        if self._quantized_for != key:
+            self._quantized_for, self._quantized_from, self._quantized = key, w.detach(), {}
+        entry = self._quantized.get(device)
+        if entry is None:
+            with torch.inference_mode(False), torch.no_grad():
+                entry = self._quantized[device] = weight_scale(w.detach().to(device))
+        return entry
+
     def forward(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
         if self.groups > 1:  # depthwise: the compute-dtype conv, as in JAX
             return super().forward(x)
-        dev = x.devices[0] if isinstance(x, Bands) else x.device
-        w_q, s_w = weight_scale(self.weight.to(dev))
         if isinstance(x, Bands):
-            return self._forward_bands(x, w_q, s_w)
+            return self._forward_bands(x)
         s_x = activation_scale(abs_max(x))
-        return self._int8(quantize(x, s_x), w_q, s_x * s_w,
-                          same_pad(x.shape[-2], w_q.shape[1], self.stride), x.dtype)
+        return self._int8(x, s_x, same_pad(x.shape[-2], self.weight.shape[-1], self.stride))
 
-    def _forward_bands(self, x: Bands, w_q: torch.Tensor, s_w: torch.Tensor) -> Bands:
-        """The scale from every band's max; each band quantized, then the
-        conv on each window of the quantized bands (the height's SAME pad
-        from the global height, as ``Conv2dSame`` takes it)."""
-        k = w_q.shape[1]
+    def _forward_bands(self, x: Bands) -> Bands:
+        """The scale from every band's max; the op on each window of the
+        float bands (zero rows outside the image quantize to zero, so the
+        windows give the bits of windows of quantized bands; the height's
+        SAME pad from the global height, as ``Conv2dSame`` takes it)."""
+        k = self.weight.shape[-1]
         s_x = activation_scale(band_max(x).float())
-        x_q = x.map(lambda t: quantize(t, s_x.to(t.device)))
-        scale = s_x * s_w
         top = same_pad(x.height, k, self.stride)[0]
-        return row_op(x_q, k, self.stride, top, -(-x.height // self.stride),
-                      lambda window: self._int8(window, w_q.to(window.device),
-                                                scale.to(window.device), (0, 0), x.dtype))
+        return row_op(x, k, self.stride, top, -(-x.height // self.stride),
+                      lambda window: self._int8(window, s_x.to(window.device), (0, 0)))
 
-    def _int8(self, x_q: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
-              rows_pad: tuple[int, int], dtype: torch.dtype) -> torch.Tensor:
-        left, right = same_pad(x_q.shape[-1], w_q.shape[1], self.stride)
-        y = int8_conv2d(x_q.permute(0, 2, 3, 1), w_q, scale, self.stride,
-                        (*rows_pad, left, right), dtype)
+    def _int8(self, x: torch.Tensor, s_x: torch.Tensor,
+              rows_pad: tuple[int, int]) -> torch.Tensor:
+        w_q, s_w = self.quantized_weight(x.device)
+        left, right = same_pad(x.shape[-1], w_q.shape[1], self.stride)
+        y = int8_conv2d(x.permute(0, 2, 3, 1), s_x, w_q, s_w, self.stride,
+                        (*rows_pad, left, right), x.dtype)
         return y.permute(0, 3, 1, 2)
 
 

@@ -204,30 +204,36 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    device), and ms a step of each in bf16. The main path is the first grid
    with TTA on.
 12. The int8 encoder convs (``int8``, ``conv_int8=True``), at the
-   flagship's full width on phase 3's weights and video: the s8 kernel
-   (``csrc/int8_conv.cu``) through the op's CUDA route at
-   ``INT8_EDGE_CASES`` (ragged tiles, odd sizes at stride 2, C padded to 16,
-   1×1 convs on the kernel, odd O, two passes over C, k 5, a misaligned
-   x, a 1×1 through ``_int_mm``; every output and int32 sum equal to the
-   plain version's, each case's route checked); the five k×k shapes of a
-   TTA-on chunk (``INT8_SHAPES``, batch 256) exact in int32 and bf16
-   against the plain version (float64, in slices of 16 images), timed as
-   in phase 2 beside cuDNN's bf16 conv of the same shape; two 1×1 shapes
-   through ``_int_mm``, exact, beside the kernel at k 1. Then the flagship
-   int8 engine (bf16, chunk 128, feature carry): the main path TTA on with
-   the launch counters at 0 (5 kernel launches and 36 ``_int_mm`` calls per
-   encoder call, GeM 3, dwconv3d 12), a TTA-off chunk whose 41 quantized
-   layers a forward hook holds against the plain version on their
-   captured inputs, exactly, the drift from phase 3's bf16 predictions
-   (< 0.15), the encoder features on 32 stacks equal to those of the plain
-   s8 product and their correlation with bf16 (logged),
-   device and end-to-end fps of int8 and bf16 in turns, TTA off and on,
-   and a chunk profile by op. Then, each path counted from 0: the streaming
-   engine against the chunked one, the device-state engine on a feed of 4
-   streams and its tick ms at buckets 1, 8, 16 beside the 40-ms limit, the
-   sp 1×2 grid against the unsplit engine, the frame-carry engine exported
-   and reloaded (41 ``int8_conv2d`` nodes), and the data-share grid on the
-   visible cards; each launches the int8 kernel, GeM and dwconv3d.
+   flagship's full width on phase 3's weights and video: the two kernels of
+   ``csrc/int8_conv.cu``, which quantize a compute-dtype x while staging it
+   and dequantize in their epilogue, through the op's CUDA route at
+   ``INT8_EDGE_CASES`` (ragged tiles, odd sizes at stride 2, C 8 and 24,
+   1×1 edge shapes on the conv kernel, odd O, two passes over C, k 5,
+   misaligned x, the GEMM kernel's C tail, passes over K and part channel
+   tile; every output and int32 sum equal to the plain version's, each
+   case's kernel checked); the five k×k shapes of a TTA-on chunk
+   (``INT8_SHAPES``, batch 256) on the conv kernel and three 1×1 shapes
+   (``INT8_MM_SHAPES``) on the GEMM kernel, seeded bf16 x with s_x from
+   ``activation_scale``, exact in int32 and bf16 against the plain version
+   (quantize, float64 sums in slices of 16 images, dequantize), timed as in
+   phase 2 beside cuDNN's bf16 conv (k×k) or ``torch._int_mm`` on the
+   quantized x (1×1). Then the flagship int8 engine (bf16, chunk 128,
+   feature carry): the main path TTA on with the launch counters at 0 (5
+   conv-kernel and 36 GEMM-kernel launches per encoder call, GeM 3,
+   dwconv3d 12), a TTA-off chunk whose 41 quantized layers a forward hook
+   holds against the plain version on their captured inputs, exactly, the
+   drift from phase 3's bf16 predictions (< 0.15), the encoder features on
+   32 stacks equal to those of the plain version and their correlation with
+   bf16 (logged), device and end-to-end fps of int8 and bf16 in turns, TTA
+   off and on, and a chunk profile by op whose separate quantize,
+   weight-quantize and dequantize ops and ``_int_mm`` calls are no more
+   than bf16's. Then, each path counted from 0: the streaming engine
+   against the chunked one, the device-state engine on a feed of 4 streams
+   and its tick ms at buckets 1, 8, 16 beside the 40-ms limit, the sp 1×2
+   grid against the unsplit engine (and its device fps beside the unsplit
+   engine's, TTA on, in turns), the frame-carry engine exported and
+   reloaded (41 ``int8_conv2d`` nodes), and the data-share grid on the
+   visible cards; each launches both int8 kernels, GeM and dwconv3d.
 13. Prints the ``kernels`` JSON line (one row per kernel and main path:
    GeM on the inference and on the training path, the depthwise conv, and
    the warp's H and V passes, each with its own launches and bound, and
@@ -236,9 +242,10 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    depthwise conv at the serving and the multi-channel shapes, each with
    its paths; then GeM's band-partial launch and the depthwise conv at
    phase 11's band shapes, with the spatial paths, GeM's with the banded
-   train step's too; then the int8 kernel at phase 12's k×k shapes with
-   the int8 paths and cuDNN's bf16 time beside it), then the device line
-   last.
+   train step's too; then the int8 conv kernel at phase 12's k×k shapes
+   with cuDNN's bf16 time beside it and the int8 GEMM kernel at its 1×1
+   shapes with ``_int_mm``'s, both with the int8 paths), then the device
+   line last.
 
 Float32 comparisons run with TF32 off (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32`` set False): cuDNN would
@@ -589,14 +596,15 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, match: str, reps: int = 10, warmup: int = 2, per_call: int = 1,
-              tries: int = 3) -> float:
+def profiled_ms(fn, match: str, reps: int = 10, warmup: int = 2, per_call: int = 1,
+                tries: int = 3) -> tuple[float | None, list[int]]:
     """The kernel's own time per call: the median over ``reps`` calls of
     ``fn`` of the summed device time of the ``per_call`` kernels a call
     launches whose name holds ``match`` (torch.profiler, which traces
-    ctypes launches like any other). A window in which the profiler saw
-    another count than ``per_call · reps`` launches is profiled again, up
-    to ``tries`` times, and then fails the run."""
+    ctypes launches like any other), and the launches each window saw. A
+    window in which the profiler saw another count than ``per_call · reps``
+    launches is profiled again, up to ``tries`` times; then the time is
+    None."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -614,12 +622,34 @@ def device_ms(fn, match: str, reps: int = 10, warmup: int = 2, per_call: int = 1
         if len(spans) == per_call * reps:
             return statistics.median(
                 sum(end - start for start, end in spans[i:i + per_call]) / 1e3
-                for i in range(0, len(spans), per_call))
-    fail(f"the profiler saw {seen} launches of {match!r} in windows of {reps} calls, "
-         f"expected {per_call * reps}")
+                for i in range(0, len(spans), per_call)), seen
+    return None, seen
 
 
-def device_ms_events(fn, kernel, reps: int = 10, warmup: int = 2) -> float:
+def device_ms(fn, match: str, reps: int = 10, warmup: int = 2, per_call: int = 1,
+              tries: int = 3) -> float:
+    """``profiled_ms``, failing the run where every window lost launches."""
+    ms, seen = profiled_ms(fn, match, reps, warmup, per_call, tries)
+    if ms is None:
+        fail(f"the profiler saw {seen} launches of {match!r} in windows of {reps} calls, "
+             f"expected {per_call * reps}")
+    return ms
+
+
+def kernel_device_ms(fn, match: str, kernel, per_call: int = 1) -> dict:
+    """A row's device time: ``profiled_ms`` where a window saw every
+    launch, else ``device_ms_events`` (the profiler's windows have lost
+    every record of a kernel on the card, ROADMAP C8), with the launches
+    the windows saw."""
+    ms, seen = profiled_ms(fn, match, per_call=per_call)
+    if ms is not None:
+        return {"device_ms": ms, "device_ms_method": "per_call_sum"}
+    log({"profiler_lost_launches": match, "seen": seen, "expected": per_call * 10})
+    return {"device_ms": device_ms_events(fn, kernel, per_call=per_call),
+            "device_ms_method": "cuda_events_behind_sleep", "profiler_launches_seen": seen}
+
+
+def device_ms_events(fn, kernel, reps: int = 10, warmup: int = 2, per_call: int = 1) -> float:
     """The device time of one call of ``fn`` by CUDA events, for the rows
     where torch.profiler's window lost kernel records on the card (7 of 24
     launches at GeM's serving shape; 3 of 12 ``dwconv3d_kernel`` launches at
@@ -642,8 +672,9 @@ def device_ms_events(fn, kernel, reps: int = 10, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    if kernel.launches - before != reps:
-        fail(f"{kernel.name}: {kernel.launches - before} launches in {reps} timed calls")
+    if kernel.launches - before != per_call * reps:
+        fail(f"{kernel.name}: {kernel.launches - before} launches in {reps} timed calls, "
+             f"expected {per_call * reps}")
     return statistics.median(times)
 
 
@@ -733,10 +764,9 @@ def check_gem(dev, shape: tuple, path: str, per_kernel: bool = False) -> dict:
         "max_abs_diff": err, "tolerance": tol,
         "kernel_ms": median_ms(lambda: gem_pool(x, p)),
         "direct_ms": median_ms(lambda: gem_ops.gem_pool_cuda(x, p)),
-        "device_ms": (device_ms_events(lambda: gem_pool(x, p), gem_ops.KERNEL)
-                      if per_kernel else device_ms(lambda: gem_pool(x, p), "gem_",
-                                                   per_call=launches)),
-        "device_ms_method": "cuda_events_behind_sleep" if per_kernel else "per_call_sum",
+        **({"device_ms": device_ms_events(lambda: gem_pool(x, p), gem_ops.KERNEL),
+            "device_ms_method": "cuda_events_behind_sleep"} if per_kernel else
+           kernel_device_ms(lambda: gem_pool(x, p), "gem_", gem_ops.KERNEL, per_call=launches)),
         "plain_ms": median_ms(lambda: gem_pool_reference(x, p)),
         "library_ms": median_ms(
             lambda: x.float().clamp_min(1e-6).pow(p).mean((1, 2)).pow(1.0 / p)),
@@ -779,9 +809,9 @@ def check_dwconv(dev, num_tta: int, n: int | None = None, path: str = "inference
         "max_abs_diff": err, "tolerance": tol, "library_max_abs_diff": lib_err,
         "kernel_ms": median_ms(lambda: dwconv3d(x, k)),
         "direct_ms": median_ms(lambda: dw_ops._dwconv3d_cuda_route(x, k)),
-        "device_ms": (device_ms_events(lambda: dwconv3d(x, k), dw_ops.KERNEL)
-                      if per_kernel else device_ms(lambda: dwconv3d(x, k), "dwconv3d_kernel")),
-        "device_ms_method": "cuda_events_behind_sleep" if per_kernel else "per_call_sum",
+        **({"device_ms": device_ms_events(lambda: dwconv3d(x, k), dw_ops.KERNEL),
+            "device_ms_method": "cuda_events_behind_sleep"} if per_kernel else
+           kernel_device_ms(lambda: dwconv3d(x, k), "dwconv3d_kernel", dw_ops.KERNEL)),
         "plain_ms": median_ms(lambda: dwconv3d_reference(x, k)),
         "library_ms": median_ms(lambda: dwconv3d_grouped_conv(x, k)),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -975,7 +1005,7 @@ def check_warp(dev, axis: str, dtype) -> dict:
            "shape": [n, h, w], "dtype": str(dtype).replace("torch.", ""),
            "max_abs_diff": err, "tolerance": tol,
            "kernel_ms": median_ms(kernel), "direct_ms": median_ms(direct),
-           "device_ms": device_ms(kernel, "resample"),
+           **kernel_device_ms(kernel, "resample", warp_ops.KERNEL),
            "plain_ms": median_ms(plain, reps=3, warmup=1)}
     # the library call: one bmm of the row blocks with the interpolation
     # matrices, built before the clock starts
@@ -1452,19 +1482,17 @@ def training(dev, card: str, keep_dir: Path) -> dict:
 
 def path_launches() -> dict:
     """The kernels' counts since the last ``reset_counts``, the warp's by
-    pass and GeM's band-partial launches apart, and the int8 convs' calls
-    of ``torch._int_mm``."""
+    pass and GeM's band-partial launches apart."""
     return {**{k.name: k.launches for k in KERNELS},
             "warp_H": warp_ops.KERNEL.launches_by.get("H", 0),
             "warp_V": warp_ops.KERNEL.launches_by.get("V", 0),
-            "gem_partial": gem_ops.KERNEL.launches_by.get(gem_ops.PARTIAL, 0),
-            "int_mm": int8_ops.INT_MM.launches}
+            "gem_partial": gem_ops.KERNEL.launches_by.get(gem_ops.PARTIAL, 0)}
 
 
 def counted(name: str, launches: dict, fn):
     """Run ``fn`` with the launch counters set to 0 just before; record its
     path's counts under ``name``."""
-    for k in (*KERNELS, int8_ops.INT_MM):
+    for k in KERNELS:
         k.reset_counts()
     out = fn()
     torch.cuda.synchronize()
@@ -3672,8 +3700,8 @@ def check_gem_partial(dev, rows: int) -> dict:
         "launches_per_call": per_call,
         "kernel_ms": median_ms(lambda: gem_pool_partial(x, p)),
         "direct_ms": median_ms(lambda: gem_ops.gem_pool_partial_cuda(x, p)),
-        "device_ms": device_ms(lambda: gem_pool_partial(x, p), "gem_", per_call=per_call),
-        "device_ms_method": "per_call_sum",
+        **kernel_device_ms(lambda: gem_pool_partial(x, p), "gem_", gem_ops.KERNEL,
+                           per_call=per_call),
         "plain_ms": median_ms(lambda: gem_pool_partial_reference(x, p)),
         "library_ms": median_ms(lambda: x.float().clamp_min(1e-6).pow(p).sum((1, 2))),
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -3913,36 +3941,45 @@ INT8_SHAPES = {
     "int8_conv_blocks_2_0": (2 * CHUNK, 184, 320, 32, 128, 3, 2),
     "int8_conv_blocks_2_1": (2 * CHUNK, 92, 160, 48, 192, 3, 1),
 }
-# Two of the 36 1×1 convs, which go through torch._int_mm: the largest M
-# (blocks_1_0.conv_pwl, 64 → 32 at 184×320) and the largest K
-# (blocks_5_7.conv_pwl, 1152 → 192 at 23×40).
+# Three of the 36 1×1 convs, on the GEMM kernel: the largest M
+# (blocks_1_0.conv_pwl, 64 → 32 at 184×320), the largest K
+# (blocks_5_7.conv_pwl, 1152 → 192 at 23×40) and the largest N
+# (blocks_5_7.conv_pw, 192 → 1152 at 23×40, as blocks_5_1..6).
 INT8_MM_SHAPES = {
-    "int8_matmul_blocks_1_0_pwl": (2 * CHUNK, 184, 320, 64, 32, 1, 1),
-    "int8_matmul_blocks_5_7_pwl": (2 * CHUNK, 23, 40, 1152, 192, 1, 1),
+    "int8_gemm_blocks_1_0_pwl": (2 * CHUNK, 184, 320, 64, 32, 1, 1),
+    "int8_gemm_blocks_5_7_pwl": (2 * CHUNK, 23, 40, 1152, 192, 1, 1),
+    "int8_gemm_blocks_5_7_pw": (2 * CHUNK, 23, 40, 192, 1152, 1, 1),
 }
 INT8_SLICE = 16  # images per float64 slice of the plain version
 # The int8 conv's edge shapes through the op's CUDA route, each against the
-# plain version, exactly: (N, H, W, C, O, k, stride), the output dtype, the
-# byte offset of x_q, and the route the shape takes. Ragged row and column
-# tiles (H 23, W 40); odd H and W at stride 2 and a part channel tile (O
-# 24); C 8 and C 24, padded to 16 and 32 by the route; a 1×1 at stride 2 and
-# a 1×1 of 8 rows (M ≤ 16, which _int_mm refuses) on the kernel at k 1; an
-# odd O (single-channel stores) with int32 sums; C 80 (two passes, 64 + 16
-# channels) and O 72 (two channel tiles); the 1×1 at K 1152 on the kernel
-# (18 passes); k 5; an x_q one byte past a 16-byte boundary (the route
-# copies it); and a 1×1 through _int_mm.
+# plain version, exactly: (N, H, W, C, O, k, stride), the compute dtype (of x
+# and the output; the int32 sums are checked too), x's offset in elements
+# past a 16-byte boundary (its rows then copied byte by byte), and the
+# kernel the shape takes. On the conv kernel: ragged row and column tiles (H
+# 23, W 40); odd H and W at stride 2 and a part channel tile (O 24); C 8 and
+# C 24 (the channel tail masked); a 1×1 at stride 2, a 1×1 of 8 pixels (M ≤
+# 16) and a 1×1 with an odd O; an odd O at k3 (single-channel stores); C 80
+# (two passes, 64 + 16 channels) and O 72; the 1×1 at K 1152 on 12 pixels
+# (18 passes); k 5; a misaligned x. On the GEMM kernel: K 96; C 24 in
+# float16; a misaligned x; K 1152 (passes through the ring) and O 130 (a
+# part second channel tile) over ragged rows; float32.
 INT8_EDGE_CASES = [
-    ((2, 23, 40, 16, 16, 3, 1), torch.bfloat16, 0, "kernel"),
-    ((3, 9, 33, 48, 24, 3, 2), torch.float32, 0, "kernel"),
-    ((2, 11, 13, 8, 8, 3, 1), torch.float16, 0, "kernel"),
-    ((2, 9, 10, 24, 40, 1, 2), torch.bfloat16, 0, "kernel"),
-    ((1, 2, 4, 16, 16, 1, 1), torch.bfloat16, 0, "kernel"),
-    ((2, 12, 20, 32, 17, 3, 1), torch.int32, 0, "kernel"),
-    ((2, 15, 17, 80, 72, 3, 2), torch.bfloat16, 0, "kernel"),
-    ((1, 3, 4, 1152, 192, 1, 1), torch.bfloat16, 0, "kernel"),
-    ((2, 13, 21, 32, 32, 5, 2), torch.float32, 0, "kernel"),
-    ((2, 10, 12, 32, 64, 3, 1), torch.bfloat16, 1, "kernel"),
-    ((4, 23, 40, 96, 24, 1, 1), torch.bfloat16, 0, "int_mm"),
+    ((2, 23, 40, 16, 16, 3, 1), torch.bfloat16, 0, "conv"),
+    ((3, 9, 33, 48, 24, 3, 2), torch.float32, 0, "conv"),
+    ((2, 11, 13, 8, 8, 3, 1), torch.float16, 0, "conv"),
+    ((2, 9, 10, 24, 40, 1, 2), torch.bfloat16, 0, "conv"),
+    ((1, 2, 4, 16, 16, 1, 1), torch.bfloat16, 0, "conv"),
+    ((2, 23, 40, 32, 17, 1, 1), torch.bfloat16, 0, "conv"),
+    ((2, 12, 20, 32, 17, 3, 1), torch.float32, 0, "conv"),
+    ((2, 15, 17, 80, 72, 3, 2), torch.bfloat16, 0, "conv"),
+    ((1, 3, 4, 1152, 192, 1, 1), torch.bfloat16, 0, "conv"),
+    ((2, 13, 21, 32, 32, 5, 2), torch.float32, 0, "conv"),
+    ((2, 10, 12, 32, 64, 3, 1), torch.bfloat16, 1, "conv"),
+    ((4, 23, 40, 96, 24, 1, 1), torch.bfloat16, 0, "gemm"),
+    ((2, 9, 11, 24, 40, 1, 1), torch.float16, 0, "gemm"),
+    ((2, 7, 9, 32, 48, 1, 1), torch.bfloat16, 1, "gemm"),
+    ((2, 23, 40, 1152, 130, 1, 1), torch.bfloat16, 0, "gemm"),
+    ((3, 5, 7, 48, 96, 1, 1), torch.float32, 0, "gemm"),
 ]
 
 
@@ -3952,32 +3989,33 @@ def bound_int8(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def int8_inputs(dev, shape: tuple, seed: int, offset: int = 0):
-    """Seeded int8 x_q (N, H, W, C) (``offset`` bytes into its buffer),
-    w_q (O, k, k, C), a float32 scale of the size s_x · s_w takes, and the
-    TF SAME pads."""
+def int8_inputs(dev, shape: tuple, seed: int, dtype=torch.bfloat16, offset: int = 0):
+    """Seeded x (N, H, W, C) in ``dtype`` (``offset`` elements into its
+    buffer) with an outlier, its s_x from ``activation_scale``, a seeded int8
+    w_q (O, k, k, C), an s_w of the size ``weight_scale`` gives, and the TF
+    SAME pads."""
     n, h, w, c, o, k, s = shape
     g = torch.Generator(device=dev).manual_seed(seed)
-    flat = torch.randint(-127, 128, (n * h * w * c + offset,), generator=g, device=dev,
-                         dtype=torch.int8)
-    x_q = flat[offset:].view(n, h, w, c)
+    flat = torch.randn((n * h * w * c + offset,), generator=g, device=dev).to(dtype)
+    x = flat[offset:].view(n, h, w, c)
+    x.view(-1)[x.numel() // 2] = 12.0
     w_q = torch.randint(-127, 128, (o, k, k, c), generator=g, device=dev, dtype=torch.int8)
-    scale = torch.rand((o,), generator=g, device=dev) * 1e-4 + 1e-6
-    return x_q, w_q, scale, (*same_pad(h, k, s), *same_pad(w, k, s))
+    s_w = torch.rand((o,), generator=g, device=dev) * 1e-2 + 1e-4
+    return x, activation_scale(abs_max(x)), w_q, s_w, (*same_pad(h, k, s), *same_pad(w, k, s))
 
 
-def int8_plain_slices(x_q, w_q, scale, stride, pads, out_dtype):
+def int8_plain_slices(x, s_x, w_q, s_w, stride, pads, out_dtype):
     """The plain version over the batch in slices of ``INT8_SLICE`` images
     (float64 at full batch would not fit beside the kernel's tensors)."""
-    for b0 in range(0, x_q.shape[0], INT8_SLICE):
-        yield b0, int8_conv2d_reference(x_q[b0:b0 + INT8_SLICE], w_q, scale, stride, *pads,
+    for b0 in range(0, x.shape[0], INT8_SLICE):
+        yield b0, int8_conv2d_reference(x[b0:b0 + INT8_SLICE], s_x, w_q, s_w, stride, *pads,
                                         out_dtype)
 
 
-def int8_exact(name: str, out: torch.Tensor, x_q, w_q, scale, stride, pads) -> None:
+def int8_exact(name: str, out: torch.Tensor, x, s_x, w_q, s_w, stride, pads) -> None:
     """``out`` against the plain version, slice by slice: every element
     equal, or the run fails."""
-    for b0, ref in int8_plain_slices(x_q, w_q, scale, stride, pads, out.dtype):
+    for b0, ref in int8_plain_slices(x, s_x, w_q, s_w, stride, pads, out.dtype):
         got = out[b0:b0 + INT8_SLICE]
         if not torch.equal(got, ref):
             diff = (got.double() - ref.double()).abs().max().item()
@@ -3986,118 +4024,99 @@ def int8_exact(name: str, out: torch.Tensor, x_q, w_q, scale, stride, pads) -> N
 
 
 def int8_route_counts(fn) -> tuple:
-    """(kernel launches, _int_mm calls) of one call of ``fn``."""
-    before = (int8_ops.KERNEL.launches, int8_ops.INT_MM.launches)
+    """(conv kernel launches, GEMM kernel launches) of one call of ``fn``."""
+    before = (int8_ops.KERNEL.launches, int8_ops.GEMM_KERNEL.launches)
     out = fn()
     torch.cuda.synchronize()
-    return out, (int8_ops.KERNEL.launches - before[0], int8_ops.INT_MM.launches - before[1])
+    return out, (int8_ops.KERNEL.launches - before[0], int8_ops.GEMM_KERNEL.launches - before[1])
 
 
 def check_int8_edges(dev) -> None:
     """The op's CUDA route against its plain version at
-    ``INT8_EDGE_CASES``: the shape's route taken, the output (and the int32
-    sums) equal to the plain version's."""
+    ``INT8_EDGE_CASES``: the shape's kernel launched once, the output (and
+    the int32 sums) equal to the plain version's."""
     t0 = time.perf_counter()
     for i, (shape, dtype, offset, route) in enumerate(INT8_EDGE_CASES):
-        x_q, w_q, scale, pads = int8_inputs(dev, shape, 100 + i, offset)
+        x, s_x, w_q, s_w, pads = int8_inputs(dev, shape, 100 + i, dtype, offset)
         s = shape[-1]
-        for out_dtype in dict.fromkeys((dtype, torch.int32)):
-            out, (k_n, mm_n) = int8_route_counts(
-                lambda: int8_conv2d(x_q, w_q, scale, s, pads, out_dtype))
-            expected = (1, 0) if route == "kernel" else (0, 1)
-            if (k_n, mm_n) != expected:
-                fail(f"int8 edge {shape}: {k_n} kernel launches and {mm_n} _int_mm calls, "
+        for out_dtype in (dtype, torch.int32):
+            out, counts = int8_route_counts(
+                lambda: int8_conv2d(x, s_x, w_q, s_w, s, pads, out_dtype))
+            expected = (1, 0) if route == "conv" else (0, 1)
+            if counts != expected:
+                fail(f"int8 edge {shape}: {counts} conv and GEMM kernel launches, "
                      f"expected {expected}")
-            int8_exact(f"int8 edge {shape} {out_dtype}", out, x_q, w_q, scale, s, pads)
+            int8_exact(f"int8 edge {shape} {out_dtype}", out, x, s_x, w_q, s_w, s, pads)
     log({"check": "int8_conv_edges", "cases": len(INT8_EDGE_CASES), "max_abs_diff": 0.0,
          "seconds": time.perf_counter() - t0})
 
 
 def check_int8(dev, name: str, shape: tuple, seed: int) -> dict:
-    """One flagship k×k conv of ``INT8_SHAPES``: the kernel's int32 sums and
-    bf16 output equal to the plain version's, then its times beside the
-    bound, the plain version's (in slices) and cuDNN's bf16 conv of the same
-    shape (the yardstick: no PyTorch call computes an s8 k×k conv)."""
+    """One flagship conv of ``INT8_SHAPES`` (the conv kernel) or
+    ``INT8_MM_SHAPES`` (the GEMM kernel) on a seeded bf16 x: the int32 sums
+    and the bf16 output equal to the plain version's, then the times (the
+    op's; the kernel's wrapper called directly; the kernel's device time)
+    beside the bound (bf16 x read once, int8 weights, bf16 output written
+    once), the plain version's (float64, in slices) and the yardstick's: for
+    a 1×1 conv ``torch._int_mm`` on the quantized x (``library_ms``, the s8
+    product alone); for a k×k conv, which no PyTorch call computes in s8,
+    cuDNN's bf16 conv of the same shape (``cudnn_bf16_ms``)."""
     n, h, w, c, o, k, s = shape
-    x_q, w_q, scale, pads = int8_inputs(dev, shape, seed)
-    call = lambda dtype=torch.bfloat16: int8_conv2d(x_q, w_q, scale, s, pads, dtype)  # noqa: E731
-    sums, (launches, _) = int8_route_counts(lambda: call(torch.int32))
-    int8_exact(f"{name} sums", sums, x_q, w_q, scale, s, pads)
+    gemm = name in INT8_MM_SHAPES
+    kernel = int8_ops.GEMM_KERNEL if gemm else int8_ops.KERNEL
+    x, s_x, w_q, s_w, pads = int8_inputs(dev, shape, seed)
+    call = lambda dtype=torch.bfloat16: int8_conv2d(x, s_x, w_q, s_w, s, pads, dtype)  # noqa: E731
+    sums, counts = int8_route_counts(lambda: call(torch.int32))
+    if counts != ((0, 1) if gemm else (1, 0)):
+        fail(f"{name}: {counts} conv and GEMM kernel launches")
+    int8_exact(f"{name} sums", sums, x, s_x, w_q, s_w, s, pads)
     del sums
     out, _ = int8_route_counts(call)
-    int8_exact(f"{name} bf16", out, x_q, w_q, scale, s, pads)
+    int8_exact(f"{name} bf16", out, x, s_x, w_q, s_w, s, pads)
     ho, wo = out.shape[1:3]
-    nbytes = x_q.numel() + w_q.numel() + out.numel() * 2 + o * 4
+    del out
+    direct = ((lambda: int8_ops.int8_gemm_cuda(x, s_x, w_q, s_w, torch.bfloat16)) if gemm else
+              (lambda: int8_ops.int8_conv_cuda(x, s_x, w_q, s_w, s, pads, torch.bfloat16)))
+    nbytes = x.numel() * 2 + w_q.numel() + n * ho * wo * o * 2 + o * 4 + 4
     bound_ms, bound_by = bound_int8(nbytes, 2 * n * ho * wo * o * k * k * c)
     row = {
         "name": name, "path": "int8 inference, TTA on", "shape": list(shape),
-        "dtype": "int8 -> bfloat16", "max_abs_diff": 0.0, "launches_per_call": launches,
-        "kernel_ms": median_ms(call),
-        "direct_ms": median_ms(lambda: int8_ops.int8_conv2d_cuda(x_q, w_q, scale, s, pads,
-                                                                 torch.bfloat16)),
-        "device_ms": device_ms_events(call, int8_ops.KERNEL),
+        "dtype": "bfloat16 -> int8 -> bfloat16", "max_abs_diff": 0.0,
+        "launches_per_call": 1, "kernel_ms": median_ms(call), "direct_ms": median_ms(direct),
+        "device_ms": device_ms_events(call, kernel),
         "device_ms_method": "cuda_events_behind_sleep",
-        "plain_ms": median_ms(lambda: list(int8_plain_slices(x_q, w_q, scale, s, pads,
+        "plain_ms": median_ms(lambda: list(int8_plain_slices(x, s_x, w_q, s_w, s, pads,
                                                              torch.bfloat16)),
                               reps=2, warmup=1),
-        "library_ms": None,
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
     }
-    del out
+    if gemm:
+        x2, w2 = quantize(x, s_x).reshape(-1, c), w_q.reshape(o, c).t()
+        row["library_ms"] = median_ms(lambda: torch._int_mm(x2, w2))
+        row["library"] = "torch._int_mm on the quantized x (int32 sums, no dequantize)"
+        del x2
+    del x
     torch.cuda.empty_cache()
-    g = torch.Generator(device=dev).manual_seed(seed)
-    xb = torch.randn((n, c, h, w), generator=g, device=dev).to(
-        torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    wb = torch.randn((o, c, k, k), generator=g, device=dev).to(
-        torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    row["cudnn_bf16_ms"] = median_ms(lambda: F.conv2d(xb, wb, stride=s, padding=k // 2))
-    del xb, wb
-    torch.cuda.empty_cache()
-    log(row)
-    return row
-
-
-def check_int8_matmul(dev, name: str, shape: tuple, seed: int) -> dict:
-    """A flagship 1×1 conv of ``INT8_MM_SHAPES`` through the op's
-    ``_int_mm`` route, exact against the plain version; ms of the route,
-    of ``_int_mm`` alone and of the kernel at k 1 on the same inputs."""
-    n, h, w, c, o, k, s = shape
-    x_q, w_q, scale, pads = int8_inputs(dev, shape, seed)
-    out, (k_n, mm_n) = int8_route_counts(
-        lambda: int8_conv2d(x_q, w_q, scale, 1, pads, torch.bfloat16))
-    if (k_n, mm_n) != (0, 1):
-        fail(f"{name}: {k_n} kernel launches and {mm_n} _int_mm calls, expected (0, 1)")
-    int8_exact(name, out, x_q, w_q, scale, 1, pads)
-    kernel = int8_ops.int8_conv2d_cuda(x_q, w_q, scale, 1, pads, torch.bfloat16)
-    if not torch.equal(kernel, out):
-        fail(f"{name}: the kernel at k 1 differs from the _int_mm route")
-    del out, kernel
-    x2, w2 = x_q.reshape(-1, c), w_q.reshape(o, c).t()
-    nbytes = x_q.numel() + w_q.numel() + n * h * w * o * 2 + o * 4
-    bound_ms, bound_by = bound_int8(nbytes, 2 * n * h * w * o * c)
-    row = {
-        "name": name, "path": "int8 inference, TTA on", "shape": list(shape),
-        "dtype": "int8 -> bfloat16", "max_abs_diff": 0.0,
-        "route_ms": median_ms(lambda: int8_conv2d(x_q, w_q, scale, 1, pads, torch.bfloat16)),
-        "int_mm_ms": median_ms(lambda: torch._int_mm(x2, w2)),
-        "kernel_k1_ms": median_ms(lambda: int8_ops.int8_conv2d_cuda(x_q, w_q, scale, 1, pads,
-                                                                    torch.bfloat16)),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-    }
-    torch.cuda.empty_cache()
+    if not gemm:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        xb = torch.randn((n, c, h, w), generator=g, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wb = torch.randn((o, c, k, k), generator=g, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        row["cudnn_bf16_ms"] = median_ms(lambda: F.conv2d(xb, wb, stride=s, padding=k // 2))
+        del xb, wb
+        torch.cuda.empty_cache()
     log(row)
     return row
 
 
 def int8_kernel_checks(dev) -> dict:
-    """Phase 12's kernel rows: the edge shapes, the five k×k shapes and the
-    two 1×1 shapes."""
+    """Phase 12's kernel rows: the edge shapes, the five k×k shapes on the
+    conv kernel and the three 1×1 shapes on the GEMM kernel."""
     t0 = time.perf_counter()
     check_int8_edges(dev)
     rows = {name: check_int8(dev, name, shape, 40 + i)
-            for i, (name, shape) in enumerate(INT8_SHAPES.items())}
-    rows.update({name: check_int8_matmul(dev, name, shape, 60 + i)
-                 for i, (name, shape) in enumerate(INT8_MM_SHAPES.items())})
+            for i, (name, shape) in enumerate({**INT8_SHAPES, **INT8_MM_SHAPES}.items())}
     log({"phase": "int8_kernel_checks_done", "seconds": time.perf_counter() - t0})
     return rows
 
@@ -4113,8 +4132,13 @@ INT8_DRIFT = 0.15    # JAX's bound of the int8 sigmoids' drift (tests/test_quant
 INT8_PATHS_ATOL = INT8_DRIFT
 INT8_STREAM_FRAMES = 96
 INT8_TICK_BUCKETS = (1, 8, 16)
-INT8_PROFILE_OPS = ("bas_torch::int8_conv2d", "aten::_int_mm", "aten::linalg_vector_norm",
-                    "aten::div_", "aten::round_", "aten::clamp_", "aten::mul")
+INT8_PROFILE_OPS = ("bas_torch::int8_conv2d", "aten::linalg_vector_norm", "aten::mul",
+                    "aten::clamp_min")
+# Ops of the separate quantize, weight-quantize and dequantize passes and of
+# the _int_mm route: an int8 chunk program may run none of them more often
+# than the bf16 program of the same engine does.
+INT8_PASS_OPS = ("aten::_int_mm", "aten::div", "aten::div_", "aten::round", "aten::round_",
+                 "aten::clamp", "aten::clamp_", "aten::amax", "aten::_to_copy")
 
 
 def quant_layers(model) -> list:
@@ -4126,16 +4150,17 @@ def quant_layers(model) -> list:
 
 def hold_quant_layer(name: str, mod, x: torch.Tensor, out: torch.Tensor) -> None:
     """One quantized conv's output against the plain version on its input:
-    the weight and activation quantized as ``QuantConv`` quantizes them, the
-    s8 product by ``int8_conv2d_reference`` (float64) in slices of the
-    batch, every element equal."""
+    the weight quantized afresh by ``weight_scale`` (the layer's cached one
+    must be its bits), the activation's scale as ``QuantConv`` takes it, and
+    ``int8_conv2d_reference`` (quantize, float64 sums, dequantize) in slices
+    of the batch, every element equal."""
     w_q, s_w = weight_scale(mod.weight)
     s_x = activation_scale(abs_max(x))
     k, s = w_q.shape[1], mod.stride
     pads = (*same_pad(x.shape[2], k, s), *same_pad(x.shape[3], k, s))
     for b0 in range(0, x.shape[0], INT8_SLICE):
-        x_q = quantize(x[b0:b0 + INT8_SLICE], s_x).permute(0, 2, 3, 1)
-        ref = int8_conv2d_reference(x_q, w_q, s_x * s_w, s, *pads, x.dtype)
+        ref = int8_conv2d_reference(x[b0:b0 + INT8_SLICE].permute(0, 2, 3, 1), s_x, w_q, s_w,
+                                    s, *pads, x.dtype)
         if not torch.equal(out[b0:b0 + INT8_SLICE].permute(0, 2, 3, 1), ref):
             diff = (out[b0:b0 + INT8_SLICE].permute(0, 2, 3, 1).float() - ref.float())
             fail(f"int8 layer {name} differs from the plain version by {diff.abs().max().item()}")
@@ -4170,8 +4195,8 @@ def int8_hooked_chunk(predictor, frames: np.ndarray) -> int:
 
 @contextlib.contextmanager
 def plain_int8():
-    """The int8 convs' s8 product by the plain version (float64, exact) on
-    any device, in place of the kernel and ``_int_mm``."""
+    """The int8 convs by their plain version (quantize, float64 sums,
+    dequantize) on any device, in place of the kernels."""
     op = int8_ops.int8_conv2d_op
     int8_ops.int8_conv2d_op = int8_conv2d_reference
     try:
@@ -4207,10 +4232,10 @@ def int8_features(dev, bf16, int8, frames: np.ndarray, count: int = 32) -> dict:
 
 
 def int8_profile(predictor, frames: np.ndarray, chunks: int = 2) -> dict:
-    """Device ms a chunk program of the int8 engine by op (torch.profiler's
-    device time under each op of ``INT8_PROFILE_OPS``: the s8 op, _int_mm,
-    the abs-max, the quantize passes and the scale products), its busy ms,
-    and the top kernels."""
+    """Device ms a chunk program of an engine by op (torch.profiler's device
+    time under each op of ``INT8_PROFILE_OPS``: the int8 op, the abs-max and
+    the scale's product and clamp), its busy ms, the two int8 kernels' own
+    ms, the calls of each op of ``INT8_PASS_OPS`` and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -4224,24 +4249,31 @@ def int8_profile(predictor, frames: np.ndarray, chunks: int = 2) -> dict:
     busy_ms, summed_ms, top = device_time(prof, chunks, 120, 12)
     by_op = {e.key: e.device_time_total / 1e3 / chunks for e in prof.key_averages()
              if e.key in INT8_PROFILE_OPS}
-    kernel_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                    if "int8_conv_kernel" in e.key) / 1e3 / chunks
+    kernel_ms = {route: sum(e.self_device_time_total for e in prof.key_averages()
+                            if "int8_kernel<" in e.key and f", {rows}>" in e.key) / 1e3 / chunks
+                 for route, rows in (("conv", "false"), ("gemm", "true"))}
+    calls = {e.key: e.count // chunks for e in prof.key_averages() if e.key in INT8_PASS_OPS}
     return {"tta": predictor.tta, "wall_ms_per_chunk": wall_ms,
             "device_busy_ms_per_chunk": busy_ms, "kernel_sum_ms_per_chunk": summed_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-            "int8_conv_kernel_ms_per_chunk": kernel_ms, "device_ms_by_op": by_op, "top": top}
+            "int8_conv_kernel_ms_per_chunk": kernel_ms["conv"],
+            "int8_gemm_kernel_ms_per_chunk": kernel_ms["gemm"], "device_ms_by_op": by_op,
+            "pass_op_calls_per_chunk": {op: calls.get(op, 0) for op in INT8_PASS_OPS},
+            "top": top}
 
 
 def int8_flagship(dev, card: str, weights, frames: np.ndarray, raw_bf16: np.ndarray,
                   launches: dict) -> dict:
     """The flagship int8 engine (bf16, chunk 128, feature carry) over the
     inference phase's video: the main path TTA on with the launch counters
-    at 0 (5 kernel launches and 36 _int_mm calls an encoder call: 3 chunk
+    at 0 (5 conv-kernel and 36 GEMM-kernel launches an encoder call: 3 chunk
     programs and the bootstrap), the 41 layers of a TTA-off chunk held
     against the plain version, the drift from bf16 (the sigmoids within
-    JAX's bound; the encoder features equal to the plain s8 product's, their
+    JAX's bound; the encoder features equal to the plain version's, their
     correlation with bf16 logged), device and end-to-end fps against bf16
-    in turns, and a chunk profile TTA off and on."""
+    in turns, and a chunk profile TTA off and on, whose calls of each op of
+    ``INT8_PASS_OPS`` (separate quantize, weight-quantize and dequantize
+    passes, ``_int_mm``) are at most the bf16 program's."""
     expected = len(frames) - 30
 
     def engine(**kw):
@@ -4257,10 +4289,11 @@ def int8_flagship(dev, card: str, weights, frames: np.ndarray, raw_bf16: np.ndar
     check_outputs("int8 main path", idx, raw, expected)
     got = launches["int8_inference"]
     calls = CHUNKS + 1  # the chunk programs and the bootstrap
-    if (got["int8_conv"] != INT8_K_CONVS * calls or got["int_mm"] != INT8_MM_CONVS * calls
+    if (got["int8_conv"] != INT8_K_CONVS * calls or got["int8_gemm"] != INT8_MM_CONVS * calls
             or got["gem"] != CHUNKS or got["dwconv3d"] != CHUNKS * DW_PER_CHUNK):
         fail(f"the int8 main path launched {got}, expected {INT8_K_CONVS * calls} int8 convs, "
-             f"{INT8_MM_CONVS * calls} _int_mm, {CHUNKS} GeM, {CHUNKS * DW_PER_CHUNK} dwconv3d")
+             f"{INT8_MM_CONVS * calls} int8 GEMMs, {CHUNKS} GeM, "
+             f"{CHUNKS * DW_PER_CHUNK} dwconv3d")
     drift = agree("int8_vs_bf16_tta_on", raw, raw_bf16, INT8_DRIFT)
     out = {"card": card, "drift_vs_bf16_tta_on": drift,
            "prediction_corr_vs_bf16": float(np.corrcoef(raw.ravel(), raw_bf16.ravel())[0, 1]),
@@ -4280,7 +4313,15 @@ def int8_flagship(dev, card: str, weights, frames: np.ndarray, raw_bf16: np.ndar
             key = f"{name}_tta_{'on' if tta else 'off'}"
             fps.setdefault(f"{key}_end_to_end_fps", []).append(expected / secs)
             fps.setdefault(f"{key}_device_fps", []).append(device_fps(pair[name], frames))
-        out[f"profile_int8_tta_{'on' if tta else 'off'}"] = int8_profile(pair["int8"], frames)
+        prof = int8_profile(pair["int8"], frames)
+        bf16_calls = int8_profile(pair["bf16"], frames)["pass_op_calls_per_chunk"]
+        extra = {op: n for op, n in prof["pass_op_calls_per_chunk"].items()
+                 if n > bf16_calls[op]}
+        if extra:
+            fail(f"the int8 chunk program (TTA {tta}) runs separate passes: {extra} calls a "
+                 f"chunk against bf16's {bf16_calls}")
+        prof["bf16_pass_op_calls_per_chunk"] = bf16_calls
+        out[f"profile_int8_tta_{'on' if tta else 'off'}"] = prof
         del pair
         torch.cuda.empty_cache()
     out["fps"] = {k: statistics.mean(v) for k, v in fps.items()}
@@ -4300,7 +4341,7 @@ def int8_engines(dev, card: str, weights, frames: np.ndarray, launches: dict) ->
     to JAX's drift bound); the device-state engine on a feed of 4 streams
     and its tick ms at ``INT8_TICK_BUCKETS`` beside the 40-ms limit; the sp
     1×2 grid of the one card (or two cards) against the unsplit frame-carry
-    engine; the frame-carry engine exported with ``torch.export`` and
+    engine, and both engines' device fps in turns; the frame-carry engine exported with ``torch.export`` and
     reloaded, against the live engine (bf16's tolerance: the same program);
     the data-share grid on the visible cards (the one card twice) against
     one device. The grids are held to ``INT8_PATHS_ATOL``."""
@@ -4344,6 +4385,17 @@ def int8_engines(dev, card: str, weights, frames: np.ndarray, launches: dict) ->
     run_video(sp, frames[:CHUNK + 30])
     _, raw_sp, _ = counted("int8_sp_1x2", launches, lambda: run_video(sp, frames))
     out["sp_1x2_vs_unsplit"] = agree("int8_sp_1x2_vs_unsplit", raw_sp, raw_one, INT8_PATHS_ATOL)
+    # what the grid costs int8: device fps, TTA on, unsplit and sp 1x2 in
+    # turns (A B B A), and the halo traffic of the float windows
+    timed = {"unsplit": [], "sp_1x2": []}
+    for name in ("unsplit", "sp_1x2", "sp_1x2", "unsplit"):
+        engine, on = (one, [dev]) if name == "unsplit" else (sp, devices)
+        fps, halo = sp_device_fps(engine, frames, on)
+        timed[name].append(fps)
+        if engine is sp:
+            out["sp_1x2_halo"] = halo
+    out["sp_1x2_device_fps_tta_on"] = {name: statistics.mean(v) for name, v in timed.items()}
+    out["sp_1x2_device_fps_runs"] = timed
     del sp
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -4373,17 +4425,17 @@ def int8_engines(dev, card: str, weights, frames: np.ndarray, launches: dict) ->
     on = launches_on()
     out["data_parallel_vs_one"] = agree("int8_data_parallel_vs_one_device", raw_grid, raw_one,
                                         INT8_PATHS_ATOL)
-    if any(on["int8_conv"].get(str(d), 0) < 1 for d in cards):
-        fail(f"the int8 data-share grid did not launch the kernel on every card: {on}")
+    if any(on[k].get(str(d), 0) < 1 for d in cards for k in ("int8_conv", "int8_gemm")):
+        fail(f"the int8 data-share grid did not launch both kernels on every card: {on}")
     out["data_parallel_launches_on"] = on
     del one, grid
     torch.cuda.empty_cache()
     for path in ("int8_streaming", "int8_serve_device", "int8_sp_1x2", "int8_export",
                  "int8_data_parallel"):
         counts = launches[path]
-        if counts["int8_conv"] < 1 or counts["gem"] + counts["gem_partial"] < 1 \
-                or counts["dwconv3d"] < 1:
-            fail(f"{path} did not launch the int8 kernel, GeM and dwconv3d: {counts}")
+        if counts["int8_conv"] < 1 or counts["int8_gemm"] < 1 \
+                or counts["gem"] + counts["gem_partial"] < 1 or counts["dwconv3d"] < 1:
+            fail(f"{path} did not launch the int8 kernels, GeM and dwconv3d: {counts}")
     log({"phase": "int8_engines", **out})
     return out
 
@@ -4404,16 +4456,18 @@ def int8_phase(dev, card: str, weights, video: np.ndarray, raw_bf16: np.ndarray)
 
 
 def int8_sources(launches: dict) -> dict:
-    """The kernels line's phase-12 rows: the s8 kernel at the five k×k
-    shapes, launched on the int8 main path and every int8 engine's path.
-    It replaces no Pallas kernel: the JAX package leaves the s8 product to
-    XLA's convolution (``models/quantize.py:92``)."""
+    """The kernels line's phase-12 rows: the conv kernel at the five k×k
+    shapes and the GEMM kernel at the three 1×1 shapes, each launched on the
+    int8 main path and every int8 engine's path. They replace no Pallas
+    kernel: the JAX package leaves the s8 product to XLA's convolution
+    (``models/quantize.py:92``)."""
     paths = {"int8_inference": launches["int8_inference"],
              **{k: v for k, v in launches.items() if k.startswith("int8_")
                 and k != "int8_inference"}}
-    src = ("int8_conv", "ball_action_spotting_torch/csrc/int8_conv.cu",
-           "ball_action_spotting_tpu/models/quantize.py:92", paths)
-    return {name: src for name in INT8_SHAPES}
+    src = "ball_action_spotting_torch/csrc/int8_conv.cu"
+    replaces = "ball_action_spotting_tpu/models/quantize.py:92"
+    return {**{name: ("int8_conv", src, replaces, paths) for name in INT8_SHAPES},
+            **{name: ("int8_gemm", src, replaces, paths) for name in INT8_MM_SHAPES}}
 
 
 def device_line() -> dict:

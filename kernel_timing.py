@@ -1,10 +1,12 @@
-"""Time the port's warp-resample or GeM kernel against another version of
-its source, on one NVIDIA GPU, at the main paths' shapes.
+"""Time the port's warp-resample, GeM or int8 kernels against another
+version of their source, on one NVIDIA GPU, at the main paths' shapes.
 
     git show <commit>:ball_action_spotting_torch/csrc/warp.cu > build/warp_parent.cu
     python3 kernel_timing.py --kernel warp --other build/warp_parent.cu --other-abi pr5
     python3 kernel_timing.py --kernel gem --other build/gem_parent.cu --other-abi pr5
     python3 kernel_timing.py --kernel gem --other build/gem_parent.cu --other-abi noroot
+    git show 1c8d266:ball_action_spotting_torch/csrc/int8_conv.cu > build/int8_conv_int8x.cu
+    python3 kernel_timing.py --kernel int8_conv --other build/int8_conv_int8x.cu --other-abi int8x
 
 Builds ``ball_action_spotting_torch/csrc/<kernel>.cu`` and the ``--other``
 source with nvcc as ``ops/_cuda.py`` does and prints ptxas' register
@@ -22,6 +24,21 @@ passes at (60, 736, 1280); GeM at (1280, 23, 40, 256) and (640, 23, 40,
 Prints the card's ``nvidia-smi`` name and power limit first, then one JSON
 line per shape with each version's two medians and the bound.
 ``--sass DIR`` also writes ``cuobjdump -sass`` of each built library there.
+
+``--kernel int8_conv`` times what a quantized conv costs on the card, on a
+seeded bf16 x with s_x from ``activation_scale`` (``chip_smoke.py``'s
+``INT8_SHAPES``, the five k×k convs of a TTA-on chunk, and
+``INT8_MM_SHAPES``, three 1×1 convs): the repo's op, one launch of the conv
+or the GEMM kernel (``new``), against an int8-input source
+(``--other-abi int8x``: the C interface of the kernel before it quantized
+its input, which took int8 x and a float32 (O,) scale and dequantized in
+its epilogue) behind the quantize pass (``quantize``, five PyTorch kernels;
+``other``); at the 1×1 shapes also the ``_int_mm`` route before the GEMM
+kernel (``quantize``, ``torch._int_mm``, ``dequantize``; ``int_mm_route``).
+Each version's bf16 output is held exactly against the plain version
+(``chip_smoke.int8_exact``); each turn is the median of 10 calls timed by
+CUDA events around the call (``chip_smoke.median_ms``: the versions launch
+several kernels), in turns A B B A (and the route C first and last).
 """
 
 from __future__ import annotations
@@ -37,16 +54,23 @@ from pathlib import Path
 import torch
 
 from ball_action_spotting_torch.ops import gem as gem_ops
+from ball_action_spotting_torch.ops import int8_conv as int8_ops
 from ball_action_spotting_torch.ops import warp as warp_ops
 from ball_action_spotting_torch.ops._cuda import CudaKernel, build_all, stream_handle
 from chip_smoke import (
     CHUNK,
     GEM_TOL,
+    INT8_MM_SHAPES,
+    INT8_SHAPES,
     WARP_BF16_TOL,
     WARP_N,
     bound,
+    bound_int8,
     card_line,
     device_ms,
+    int8_exact,
+    int8_inputs,
+    median_ms,
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -61,7 +85,11 @@ PR5_SIGNATURES = {
 # partial, b, hw, c, eps, dtype, wide, splits, stream), the current one
 # without root
 NOROOT_SIGNATURES = {"gem": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P]}
-OLD_SIGNATURES = {"pr5": PR5_SIGNATURES, "noroot": NOROOT_SIGNATURES}
+# The int8 conv before it quantized its input: int8_conv_forward(x_q, w_q,
+# scale, out, n, h, w, c, o, k, s, pt, pl, ho, wo, out_code, o_tile_first,
+# o_tiles, stream), C a multiple of 16, channel tiles of 16, 32 or 64
+INT8X_SIGNATURES = {"int8_conv": [_P] * 4 + [_I] * 14 + [_P]}
+OLD_SIGNATURES = {"pr5": PR5_SIGNATURES, "noroot": NOROOT_SIGNATURES, "int8x": INT8X_SIGNATURES}
 
 
 class SourceKernel(CudaKernel):
@@ -141,6 +169,64 @@ def gem_cases(dev):
                GEM_TOL * ref.abs().max().item(), nbytes, 5 * x.numel(), calls)
 
 
+def int8x_launch(kernel, x_q, w_q, scale, stride, pads, out) -> None:
+    """One call of an int8-input source (``--other-abi int8x``), sliced as
+    its wrapper sliced the grid: 4 × 32-pixel tiles, channel tiles of 16, 32
+    or 64, at most 2^31 − 1 blocks a launch."""
+    n, h, w, c = x_q.shape
+    o, k = w_q.shape[:2]
+    ho, wo = out.shape[1:3]
+    tiles = -(-ho // 4) * -(-wo // 32)
+    per = max(1, (2**31 - 1) // tiles)
+    o_tiles = -(-o // (16 if o <= 16 else 32 if o <= 32 else 64))
+    for b0 in range(0, n, per):
+        kernel.launch(x_q.data_ptr() + b0 * h * w * c, w_q.data_ptr(), scale.data_ptr(),
+                      out.data_ptr() + b0 * ho * wo * o * out.element_size(), min(per, n - b0),
+                      h, w, c, o, k, stride, pads[0], pads[2], ho, wo, 1, 0, o_tiles,
+                      stream_handle(x_q))
+
+
+def int8_main(other: CudaKernel, card: str) -> None:
+    """``--kernel int8_conv`` (module docstring): one JSON line a shape."""
+    dev = torch.device("cuda", 0)
+    for i, (label, shape) in enumerate({**INT8_SHAPES, **INT8_MM_SHAPES}.items()):
+        n, h, w, c, o, k, s = shape
+        x, s_x, w_q, s_w, pads = int8_inputs(dev, shape, 40 + i)
+        ho, wo = -(-h // s), -(-w // s)
+        out = torch.empty((n, ho, wo, o), dtype=torch.bfloat16, device=dev)
+        scale = s_x * s_w
+
+        def old():
+            int8x_launch(other, int8_ops.quantize(x, s_x), w_q, scale, s, pads, out)
+            return out
+
+        def int_mm_route():
+            sums = torch._int_mm(int8_ops.quantize(x, s_x).reshape(-1, c), w_q.reshape(o, c).t())
+            return int8_ops.dequantize(sums, scale, torch.bfloat16).reshape(n, ho, wo, o)
+
+        versions = {"new": lambda: int8_ops.int8_conv2d(x, s_x, w_q, s_w, s, pads,
+                                                        torch.bfloat16),
+                    "other": old}
+        if k == 1:
+            versions["int_mm_route"] = int_mm_route
+        row = {"case": label, "shape": list(shape), "dtype": "bfloat16", "card": card}
+        for name, fn in versions.items():
+            int8_exact(f"{label} {name}", fn(), x, s_x, w_q, s_w, s, pads)
+            row[f"{name}_max_abs_diff"] = 0.0
+        order = ["new", "other", "other", "new"]
+        if k == 1:
+            order = ["int_mm_route", *order, "int_mm_route"]
+        times: dict[str, list[float]] = {name: [] for name in versions}
+        for name in order:
+            times[name].append(median_ms(versions[name]))
+        row["ms"] = times
+        nbytes = x.numel() * 2 + w_q.numel() + n * ho * wo * o * 2 + o * 4 + 4
+        row["bound_ms"], row["bound_by"] = bound_int8(nbytes, 2 * n * ho * wo * o * k * k * c)
+        print(json.dumps(row), flush=True)
+        del x, out
+        torch.cuda.empty_cache()
+
+
 def write_sass(kernels: dict, out_dir: Path) -> None:
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -154,10 +240,11 @@ def write_sass(kernels: dict, out_dir: Path) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("warp", "gem"), required=True)
+    parser.add_argument("--kernel", choices=("warp", "gem", "int8_conv"), required=True)
     parser.add_argument("--other", type=Path, required=True,
                         help="another <kernel>.cu to build and time beside the repo's")
-    parser.add_argument("--other-abi", choices=("current", "pr5", "noroot"), default="current",
+    parser.add_argument("--other-abi", choices=("current", "pr5", "noroot", "int8x"),
+                        default="current",
                         help="the C interface of --other")
     parser.add_argument("--sass", type=Path, help="write cuobjdump -sass of both here")
     args = parser.parse_args()
@@ -165,9 +252,12 @@ def main() -> int:
         raise SystemExit("kernel_timing needs a GPU")
     card = card_line()
     print(card, flush=True)
-    own = {"warp": warp_ops.KERNEL, "gem": gem_ops.KERNEL}[args.kernel]
+    own = {"warp": warp_ops.KERNEL, "gem": gem_ops.KERNEL, "int8_conv": int8_ops.KERNEL}[
+        args.kernel]
     if args.other_abi != "current" and args.kernel not in OLD_SIGNATURES[args.other_abi]:
-        parser.error(f"--other-abi {args.other_abi} applies to GeM only")
+        parser.error(f"--other-abi {args.other_abi} does not apply to {args.kernel}")
+    if args.kernel == "int8_conv" and args.other_abi != "int8x":
+        parser.error("--kernel int8_conv times an int8-input source: --other-abi int8x")
     signature = (own.signature if args.other_abi == "current"
                  else OLD_SIGNATURES[args.other_abi][args.kernel])
     kernels = {"kernel": own,
@@ -182,6 +272,9 @@ def main() -> int:
     if args.sass:
         write_sass(kernels, args.sass)
 
+    if args.kernel == "int8_conv":
+        int8_main(kernels[args.other.name], card)
+        return 0
     dev = torch.device("cuda", 0)
     cases = warp_cases(dev) if args.kernel == "warp" else gem_cases(dev)
     for label, shape, ref, out, tol, nbytes, flops, calls in cases:

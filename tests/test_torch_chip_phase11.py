@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ball_action_spotting_torch.models import build_model, init_weights
+from ball_action_spotting_torch.ops import dwconv3d as dw_ops
 from ball_action_spotting_torch.ops import gem as gem_ops
 from ball_action_spotting_torch.predict import streaming
 from ball_action_spotting_torch.utils.recipe import spotting_recipe
@@ -43,8 +44,8 @@ def test_chip_smoke_phase11_rehearsal_on_the_cpu(monkeypatch):
     count_partial_calls_on(monkeypatch)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
-    for timer in ("median_ms", "device_ms"):
-        monkeypatch.setattr(chip_smoke, timer, lambda fn, *a, **kw: 0.0)
+    monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, *a, **kw: 0.0)
+    monkeypatch.setattr(chip_smoke, "profiled_ms", lambda fn, *a, **kw: (0.0, [10]))
     monkeypatch.setattr(chip_smoke, "sp_profile", lambda *a: {})  # device time only
     init = streaming.PredictorBase.__init__
 
@@ -97,3 +98,23 @@ def test_chip_smoke_phase11_rehearsal_on_the_cpu(monkeypatch):
     assert all(k["launches"] > 0 for k in kernels)
     assert all(("sp_train" in k["launches_by_path"]) == k["name"].startswith("gem")
                for k in kernels)
+
+
+def test_kernel_device_ms_falls_back_to_events_when_the_profiler_loses_launches(monkeypatch):
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "profiled_ms", lambda fn, *a, **kw: (None, [0, 0, 0]))
+    taken = []
+
+    def events(fn, kernel, per_call=1):
+        taken.append((kernel, per_call))
+        return 1.5
+
+    monkeypatch.setattr(chip_smoke, "device_ms_events", events)
+    row = chip_smoke.kernel_device_ms(lambda: None, "dwconv3d_kernel", dw_ops.KERNEL, per_call=2)
+    assert row == {"device_ms": 1.5, "device_ms_method": "cuda_events_behind_sleep",
+                   "profiler_launches_seen": [0, 0, 0]}
+    assert taken == [(dw_ops.KERNEL, 2)]
+    monkeypatch.setattr(chip_smoke, "profiled_ms", lambda fn, *a, **kw: (0.25, [20]))
+    assert chip_smoke.kernel_device_ms(lambda: None, "dwconv3d_kernel", dw_ops.KERNEL) == {
+        "device_ms": 0.25, "device_ms_method": "per_call_sum"}

@@ -25,22 +25,20 @@ def count_plain_versions_on(monkeypatch):
     """A launch per call of each op's plain version, under its input's
     device: the ops' CPU implementations call them, so that the exported
     program's calls count too. GeM's band-partial sums count under
-    ``launches_by["partial"]``; the s8 op's count as a kernel launch or an
-    ``_int_mm`` call, by the route its shape takes on the card."""
+    ``launches_by["partial"]``; the int8 op's count as a launch of the conv
+    or the GEMM kernel, by the route its shape takes on the card."""
 
     def counting(module, attr, kernel, tag=None):
         original = getattr(module, attr)
 
         def call(*args):
             t = tag(*args) if tag else "kernel"
-            if t == "int_mm":
-                int8_ops.INT_MM.launches += 1
-                return original(*args)
-            kernel.launches += 1
-            if t != "kernel":
-                kernel.launches_by[t] = kernel.launches_by.get(t, 0) + 1
+            k = int8_ops.GEMM_KERNEL if t == "gemm" else kernel
+            k.launches += 1
+            if t not in ("kernel", "conv", "gemm"):
+                k.launches_by[t] = k.launches_by.get(t, 0) + 1
             device = str(args[0].device)
-            kernel.launches_on[device] = kernel.launches_on.get(device, 0) + 1
+            k.launches_on[device] = k.launches_on.get(device, 0) + 1
             return original(*args)
 
         monkeypatch.setattr(module, attr, call)
@@ -48,11 +46,13 @@ def count_plain_versions_on(monkeypatch):
     counting(gem_ops, "gem_pool_reference", gem_ops.KERNEL)
     counting(gem_ops, "gem_pool_partial_reference", gem_ops.KERNEL, lambda *a: gem_ops.PARTIAL)
     counting(dw_ops, "dwconv3d_reference", dw_ops.KERNEL)
-    counting(int8_ops, "int8_conv2d_reference", int8_ops.KERNEL, lambda x_q, w_q, scale, s, *a: (
-        "int_mm" if int8_ops.int_mm_takes(x_q, w_q, s, a[:4]) else "kernel"))
-    # the kernel's own entry point, which the 1×1 rows call directly
-    monkeypatch.setattr(int8_ops, "int8_conv2d_cuda", lambda x_q, w_q, scale, s, pads, dtype:
-                        int8_ops.int8_conv2d_reference(x_q, w_q, scale, s, *pads, dtype))
+    counting(int8_ops, "int8_conv2d_reference", int8_ops.KERNEL, lambda x, s_x, w_q, s_w, s, *a: (
+        "gemm" if int8_ops.gemm_takes(x, w_q, s, a[:4]) else "conv"))
+    # the kernels' own wrappers, which the kernel rows call directly
+    monkeypatch.setattr(int8_ops, "int8_conv_cuda", lambda x, s_x, w_q, s_w, s, pads, dtype:
+                        int8_ops.int8_conv2d_reference(x, s_x, w_q, s_w, s, *pads, dtype))
+    monkeypatch.setattr(int8_ops, "int8_gemm_cuda", lambda x, s_x, w_q, s_w, dtype:
+                        int8_ops.int8_conv2d_reference(x, s_x, w_q, s_w, 1, 0, 0, 0, 0, dtype))
 
 
 def test_chip_smoke_phase12_rehearsal_on_the_cpu(monkeypatch):
@@ -63,7 +63,8 @@ def test_chip_smoke_phase12_rehearsal_on_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
     for timer in ("median_ms", "device_ms_events"):
         monkeypatch.setattr(chip_smoke, timer, lambda fn, *a, **kw: 0.0)
-    monkeypatch.setattr(chip_smoke, "int8_profile", lambda *a: {})  # device time only
+    monkeypatch.setattr(chip_smoke, "int8_profile", lambda *a: {  # the card's profile only
+        "pass_op_calls_per_chunk": dict.fromkeys(chip_smoke.INT8_PASS_OPS, 0)})
     init = streaming.PredictorBase.__init__
 
     def kernel_by_default(self, *args, dw3d_use_kernel=None, dtype=torch.float32, **kwargs):
@@ -77,7 +78,7 @@ def test_chip_smoke_phase12_rehearsal_on_the_cpu(monkeypatch):
     nn_name, nn_kwargs = config["argus_params"]["nn_module"]
     small = {"int8_conv_small": (2, 12, 20, 16, 24, 3, 2)}
     for name, value in dict(CHUNK=8, INT8_K_CONVS=3, INT8_MM_CONVS=6, INT8_SHAPES=small,
-                            INT8_MM_SHAPES={"int8_matmul_small": (2, 6, 8, 32, 16, 1, 1)},
+                            INT8_MM_SHAPES={"int8_gemm_small": (2, 6, 8, 32, 16, 1, 1)},
                             INT8_SLICE=1, INT8_STREAM_FRAMES=46,
                             DW_PER_CHUNK=nn_kwargs["num_3d_blocks"]).items():
         monkeypatch.setattr(chip_smoke, name, value)
@@ -98,13 +99,14 @@ def test_chip_smoke_phase12_rehearsal_on_the_cpu(monkeypatch):
                                                raw_bf16)
     finally:
         torch.set_num_threads(threads)
-    assert sorted(rows) == ["int8_conv_small", "int8_matmul_small"]
+    assert sorted(rows) == ["int8_conv_small", "int8_gemm_small"]
     assert sorted(launches) == ["int8_data_parallel", "int8_export", "int8_inference",
                                 "int8_serve_device", "int8_sp_1x2", "int8_streaming"]
     main = launches["int8_inference"]
-    assert main["int8_conv"] == 3 * 4 and main["int_mm"] == 6 * 4  # 3 chunks + the bootstrap
-    kernels = chip_smoke.kernels_line(chip_smoke.int8_sources(launches),
-                                      {"int8_conv_small": rows["int8_conv_small"]})
-    assert [k["name"] for k in kernels] == ["int8_conv_small"]
+    assert main["int8_conv"] == 3 * 4 and main["int8_gemm"] == 6 * 4  # 3 chunks + the bootstrap
+    kernels = chip_smoke.kernels_line(chip_smoke.int8_sources(launches), rows)
+    assert [k["name"] for k in kernels] == ["int8_conv_small", "int8_gemm_small"]
     assert kernels[0]["launches"] == 12 and kernels[0]["library_ms"] is None
     assert "cudnn_bf16_ms" in kernels[0] and len(kernels[0]["launches_by_path"]) == 6
+    assert kernels[1]["launches"] == 24 and kernels[1]["library_ms"] == 0.0
+    assert len(kernels[1]["launches_by_path"]) == 6

@@ -26,6 +26,7 @@ import threading
 import jax
 import jax.numpy as jnp
 import numpy as np
+from flax import linen as nn
 import pytest
 import torch
 
@@ -41,6 +42,7 @@ from ball_action_spotting_torch.models.effnetv2 import (
     EfficientNetV2Features,
     same_pad,
 )
+from ball_action_spotting_torch.models import quantize as quantize_module
 from ball_action_spotting_torch.models.quantize import (
     QuantConv,
     ScaleGroup,
@@ -52,10 +54,11 @@ from ball_action_spotting_torch.models.quantize import (
 )
 from ball_action_spotting_torch.ops import int8_conv as int8_ops
 from ball_action_spotting_torch.ops.int8_conv import (
+    dequantize,
+    gemm_takes,
     int8_conv2d,
     int8_conv2d_op,
-    int8_conv2d_reference,
-    int_mm_takes,
+    int8_conv2d_sums_reference,
 )
 from ball_action_spotting_torch.parallel.spatial import COUNTS, balanced_cuts, bands_of
 from tests.test_torch_models import NN_KWARGS, to_numpy_tree
@@ -128,7 +131,7 @@ def test_quantconv_matches_jax(monkeypatch, k, stride, h, w, cin, dtype):
     x_q = quantize(xt, s_x)
     np.testing.assert_array_equal(x_q.permute(0, 2, 3, 1).numpy(), xq_j)
     pads = (*same_pad(h, k, stride), *same_pad(w, k, stride))
-    sums = int8_conv2d(x_q.permute(0, 2, 3, 1), w_q, s_x * s_w, stride, pads, torch.int32)
+    sums = int8_conv2d(xt.permute(0, 2, 3, 1), s_x, w_q, s_w, stride, pads, torch.int32)
     np.testing.assert_array_equal(sums.numpy(), sums_j)
     with torch.inference_mode():
         out = conv(xt)
@@ -159,49 +162,135 @@ def test_grouped_quantconv_takes_the_compute_dtype_conv(monkeypatch):
 def test_plain_sums_are_exact_beyond_float32():
     """The plain version sums exactly where float32 cannot (sums past
     2^24): every product 127 · 127 over a 3 × 3 × 1152 window."""
-    x_q = torch.full((1, 3, 3, 1152), 127, dtype=torch.int8)
+    x = torch.full((1, 3, 3, 1152), 127.0)
     w_q = torch.full((8, 3, 3, 1152), 127, dtype=torch.int8)
     w_q[1] = -127
-    sums = int8_conv2d(x_q, w_q, torch.ones(8), 1, (0, 0, 0, 0), torch.int32)
+    sums = int8_conv2d(x, torch.tensor(1.0), w_q, torch.ones(8), 1, (0, 0, 0, 0), torch.int32)
     assert sums.shape == (1, 1, 1, 8)
     assert sums[0, 0, 0, 0].item() == 127 * 127 * 9 * 1152 > 2**24
     assert sums[0, 0, 0, 1].item() == -127 * 127 * 9 * 1152
 
 
-@pytest.mark.parametrize("shape,k,stride,pads,takes", [
-    ((2, 23, 40, 64), 1, 1, (0, 0, 0, 0), True),     # the flagship's 1×1 convs
-    ((1, 2, 4, 64), 1, 1, (0, 0, 0, 0), False),      # M = 8 ≤ 16
-    ((2, 23, 40, 12), 1, 1, (0, 0, 0, 0), False),    # C not a multiple of 8
-    ((2, 23, 40, 64), 1, 2, (0, 0, 0, 0), False),    # stride 2
-    ((2, 23, 40, 64), 3, 1, (1, 1, 1, 1), False),    # k×k
+@pytest.mark.parametrize("shape,k,o,stride,pads,takes", [
+    ((2, 23, 40, 64), 1, 24, 1, (0, 0, 0, 0), True),     # the flagship's 1×1 convs
+    ((2, 23, 40, 12), 1, 24, 1, (0, 0, 0, 0), True),     # C off 16: the tail is masked
+    ((1, 2, 4, 64), 1, 24, 1, (0, 0, 0, 0), False),      # M = 8 ≤ 16
+    ((2, 23, 40, 64), 1, 17, 1, (0, 0, 0, 0), False),    # odd O
+    ((2, 23, 40, 64), 1, 24, 2, (0, 0, 0, 0), False),    # stride 2
+    ((2, 23, 40, 64), 1, 24, 1, (0, 1, 0, 1), False),    # padded
+    ((2, 23, 40, 64), 3, 24, 1, (1, 1, 1, 1), False),    # k×k
 ])
-def test_int_mm_route_predicate(shape, k, stride, pads, takes):
-    w_q = torch.zeros((24, k, k, shape[-1]), dtype=torch.int8)
-    assert int_mm_takes(torch.zeros(shape, dtype=torch.int8), w_q, stride, pads) is takes
+def test_gemm_route_predicate(shape, k, o, stride, pads, takes):
+    """The 1×1 GEMM kernel takes a 1×1 conv at stride 1 without padding
+    over more than 16 pixels with an even O; the conv kernel the rest."""
+    w_q = torch.zeros((o, k, k, shape[-1]), dtype=torch.int8)
+    assert gemm_takes(torch.zeros(shape), w_q, stride, pads) is takes
 
 
-def test_int_mm_refuses_an_output_width_off_eight():
-    assert not int_mm_takes(torch.zeros((2, 23, 40, 64), dtype=torch.int8),
-                            torch.zeros((20, 1, 1, 64), dtype=torch.int8), 1, (0, 0, 0, 0))
+def int8_case(shape: tuple, o: int, k: int, dtype: torch.dtype, seed: int):
+    """Seeded x (N, H, W, C) in ``dtype`` with an outlier, its s_x, and a
+    seeded int8 w_q (O, k, k, C) with its s_w."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.normal(size=shape) * 2).astype(np.float32)).to(dtype)
+    x.view(-1)[7] = 9.5
+    s_x = activation_scale(abs_max(x))
+    w_q = torch.from_numpy(rng.integers(-127, 128, (o, k, k, shape[-1]), dtype=np.int8))
+    s_w = torch.from_numpy(rng.uniform(1e-3, 1e-2, o).astype(np.float32))
+    return x, s_x, w_q, s_w
 
 
 def test_int8_conv2d_opcheck_and_dtypes():
-    g = torch.Generator().manual_seed(0)
-    x_q = torch.randint(-127, 128, (2, 7, 9, 16), generator=g, dtype=torch.int8)
-    w_q = torch.randint(-127, 128, (24, 3, 3, 16), generator=g, dtype=torch.int8)
-    scale = torch.rand(24, generator=g) * 1e-3
-    for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.int32):
-        torch.library.opcheck(int8_conv2d_op, (x_q, w_q, scale, 2, 0, 1, 1, 1, dtype))
-        out = int8_conv2d(x_q, w_q, scale, 2, (0, 1, 1, 1), dtype)
-        assert out.shape == (2, 3, 5, 24) and out.dtype == dtype
-    sums = int8_conv2d_reference(x_q, w_q, scale, 2, 0, 1, 1, 1, torch.int32)
-    np.testing.assert_array_equal(
-        int8_conv2d(x_q, w_q, scale, 2, (0, 1, 1, 1), torch.float32).numpy(),
-        (sums.float() * scale).numpy())
-    with pytest.raises(ValueError, match="int8"):
-        int8_conv2d(x_q.float(), w_q, scale, 1, (1, 1, 1, 1), torch.float32)
-    with pytest.raises(ValueError, match="scale"):
-        int8_conv2d(x_q, w_q, scale[:3], 1, (1, 1, 1, 1), torch.float32)
+    """``torch.library.opcheck`` on the schema (compute-dtype x, the 0-dim
+    s_x, int8 weights, s_w), each output dtype from each input dtype, and
+    the refusals."""
+    for in_dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x, s_x, w_q, s_w = int8_case((2, 7, 9, 16), 24, 3, in_dtype, 0)
+        for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.int32):
+            torch.library.opcheck(int8_conv2d_op, (x, s_x, w_q, s_w, 2, 0, 1, 1, 1, dtype))
+            out = int8_conv2d(x, s_x, w_q, s_w, 2, (0, 1, 1, 1), dtype)
+            assert out.shape == (2, 3, 5, 24) and out.dtype == dtype
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        int8_conv2d(x.to(torch.int8), s_x, w_q, s_w, 1, (1, 1, 1, 1), torch.float32)
+    with pytest.raises(ValueError, match="0-dim s_x"):
+        int8_conv2d(x, s_x.reshape(1), w_q, s_w, 1, (1, 1, 1, 1), torch.float32)
+    with pytest.raises(ValueError, match="s_w"):
+        int8_conv2d(x, s_x, w_q, s_w[:3], 1, (1, 1, 1, 1), torch.float32)
+    with pytest.raises(ValueError, match="weights"):
+        int8_conv2d(x, s_x, w_q.float(), s_w, 1, (1, 1, 1, 1), torch.float32)
+
+
+@pytest.mark.parametrize("shape,o,k,stride,dtype", [
+    ((2, 11, 13, 8), 8, 3, 1, torch.float16),      # C 8
+    ((3, 9, 33, 24), 40, 3, 2, torch.bfloat16),    # C 24, stride 2
+    ((2, 9, 10, 24), 40, 1, 2, torch.float32),     # 1×1 at stride 2
+    ((2, 6, 8, 32), 16, 1, 1, torch.bfloat16),     # the GEMM's shape
+    ((2, 12, 20, 48), 17, 3, 1, torch.float32),    # odd O
+])
+def test_plain_route_is_quantize_sums_dequantize(shape, o, k, stride, dtype):
+    """The op on a CPU tensor is ``quantize``, the exact sums and
+    ``dequantize`` by ``s_x · s_w``, bitwise, in int32 and the compute
+    dtype."""
+    x, s_x, w_q, s_w = int8_case(shape, o, k, dtype, sum(shape) + o)
+    pads = (*same_pad(shape[1], k, stride), *same_pad(shape[2], k, stride))
+    sums = int8_conv2d_sums_reference(quantize(x, s_x), w_q, stride, pads)
+    for out_dtype in (torch.int32, dtype):
+        got = int8_conv2d(x, s_x, w_q, s_w, stride, pads, out_dtype)
+        torch.testing.assert_close(got, dequantize(sums, s_x * s_w, out_dtype), rtol=0, atol=0)
+
+
+def test_bands_hand_float_windows_to_the_op(monkeypatch):
+    """On bands the op gets windows of the float bands, not quantized ones,
+    and one scale for them all."""
+    seen = []
+    op = int8_ops.int8_conv2d_op
+
+    def spy(x, s_x, *args):
+        seen.append((x.dtype, s_x.item()))
+        return op(x, s_x, *args)
+
+    monkeypatch.setattr(int8_ops, "int8_conv2d_op", spy)
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 16, 9, 7)).astype(np.float32))
+    conv = QuantConv(16, 8, 3, 1)
+    torch.nn.init.normal_(conv.weight)
+    with torch.inference_mode():
+        conv(bands_of(x, ["cpu"] * 3, balanced_cuts(9, 3), axis=2))
+    assert len(seen) == 3 and {s for s in seen} == {(torch.float32, seen[0][1])}
+
+
+def test_weight_quantization_is_cached_per_weight_version(monkeypatch):
+    """``weight_scale`` runs once per weight version: the cached w_q and s_w
+    are a fresh ``weight_scale``'s bits; ``load_state_dict``, an in-place
+    rescale (as BN folding scales each output channel) and a move compute
+    them again."""
+    calls = []
+    fresh = quantize_module.weight_scale
+
+    def counting(w):
+        calls.append(1)
+        return fresh(w)
+
+    monkeypatch.setattr(quantize_module, "weight_scale", counting)
+    conv = QuantConv(16, 8, 3, 2)
+    torch.nn.init.normal_(conv.weight)
+    x = torch.randn(2, 16, 7, 9, generator=torch.Generator().manual_seed(0))
+
+    def check(expected_calls):
+        with torch.inference_mode():
+            first = conv(x)
+            torch.testing.assert_close(conv(x), first, rtol=0, atol=0)
+        w_q, s_w = conv.quantized_weight(torch.device("cpu"))
+        ref_q, ref_s = fresh(conv.weight)
+        assert torch.equal(w_q, ref_q) and torch.equal(s_w, ref_s)
+        assert len(calls) == expected_calls
+
+    check(1)
+    conv.load_state_dict({"weight": conv.weight.detach() * 3 + 0.25})
+    check(2)
+    with torch.no_grad():
+        conv.weight.mul_(torch.linspace(0.5, 1.5, 8)[:, None, None, None])
+    check(3)
+    conv.to(torch.float64).to(torch.float32)
+    check(4)
 
 
 def test_quantconv_has_no_backward():
@@ -349,3 +438,114 @@ def test_int8_model_flag_matches_jax():
     assert any(isinstance(m, QuantConv) for m in chan.modules())
     with pytest.raises(TypeError):
         build_model("classifier2d", model_name="efficientnetv2_test", conv2d_int8=True)
+
+
+# C11: the int8 decay at the flagship arch. Each quantized layer's output
+# correlates with the float32 model's same layer less, the deeper it lies: on
+# seeded b0 weights with BN calibrated on the input, JAX's curve falls from
+# 0.99977 (blocks_0_0) to 0.855 (blocks_5_7.conv_pwl), the decay seen on the
+# card. The port's curve follows it within DECAY_ATOL, a third of which it
+# used (max |Δ| 3.1e-3 at the last layer, 1e-9 at the first): upstream
+# float32 sums in another order move activations across int8 rounding
+# boundaries, one step each, and the flips compound through 41 layers.
+DECAY_ATOL = 0.01
+B0_INPUT = (1, 192, 320, 3)
+
+
+def seeded_b0_tree(seed: int):
+    """JAX b0 encoder variables made with numpy (``jax.eval_shape`` for the
+    shapes, no init run): kernels LeCun-normal, biases 0.01-normal, every BN
+    randomized as ``to_numpy_tree`` does."""
+    rng = np.random.default_rng(seed)
+    x = jax.ShapeDtypeStruct(B0_INPUT, jnp.float32)
+    shapes = jax.eval_shape(lambda xx: jax_b0(True).init(jax.random.PRNGKey(0), xx, train=False),
+                            x)
+
+    def leaf(path, s):
+        name = jax.tree_util.keystr(path[-1:])
+        if "kernel" in name:
+            return (rng.normal(size=s.shape) / np.sqrt(np.prod(s.shape[:-1]))).astype(np.float32)
+        if "bias" in name:
+            return (rng.normal(size=s.shape) * 0.01).astype(np.float32)
+        return np.full(s.shape, 1.0 if ("scale" in name or "var" in name) else 0.0, np.float32)
+
+    return to_numpy_tree(jax.tree_util.tree_map_with_path(leaf, shapes), seed=seed)
+
+
+def calibrated(tree, x: np.ndarray):
+    """``tree`` with every BN's statistics those of its input on ``x`` in
+    the float32 port (as ``chip_smoke.py`` calibrates the seeded flagship),
+    so that activations stay normalized through the seeded network."""
+    from ball_action_spotting_torch.models.effnetv2 import BatchNormAct
+
+    model = EfficientNetV2Features("efficientnetv2_b0")
+    model.load_state_dict(flax_tree_to_state_dict(tree), strict=True)
+    stats = tree["batch_stats"]
+
+    def hook(name):
+        def set_stats(mod, args):
+            node = stats
+            for part in name.split("."):
+                node = node[part]
+            flat = args[0].permute(0, 2, 3, 1).reshape(-1, args[0].shape[1]).double()
+            mod.running_mean.copy_(flat.mean(0))  # downstream sees the calibrated layer
+            mod.running_var.copy_(flat.var(0))
+            node["BatchNorm_0"]["mean"] = mod.running_mean.numpy().copy()
+            node["BatchNorm_0"]["var"] = mod.running_var.numpy().copy()
+        return set_stats
+
+    handles = [m.register_forward_pre_hook(hook(name)) for name, m in model.named_modules()
+               if isinstance(m, BatchNormAct)]
+    with torch.no_grad():
+        model.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
+    for h in handles:
+        h.remove()
+    return tree
+
+
+def jax_b0(int8: bool):
+    return JaxEfficientNetV2Features(model_name="efficientnetv2_b0", out_index=4,
+                                     dtype=jnp.float32, conv_int8=int8)
+
+
+def corr(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+
+
+def test_int8_decay_matches_jax_at_b0():
+    """C11: the same seeded b0 weights (numpy, carried by ``convert.py``)
+    and a float32 192×320 input through JAX's and the port's encoders, int8
+    and float32; each of the 41 quantized layers' int8-against-float32
+    correlation in the port within ``DECAY_ATOL`` of JAX's."""
+    x = np.random.default_rng(11).random(B0_INPUT).astype(np.float32)
+    tree = calibrated(seeded_b0_tree(11), x)
+    is_conv = lambda mdl, name: (name == "__call__" and isinstance(mdl, (JaxQuantConv, nn.Conv))  # noqa: E731
+                                 and mdl.feature_group_count == 1)
+    jax_layers = {}
+    for int8 in (True, False):
+        _, state = jax.jit(lambda v, xx, int8=int8: jax_b0(int8).apply(
+            v, xx, train=False, capture_intermediates=is_conv))(tree, jnp.asarray(x))
+        for path, value in jax.tree_util.tree_flatten_with_path(state["intermediates"])[0]:
+            name = ".".join(k.key for k in path if isinstance(k, jax.tree_util.DictKey))
+            jax_layers.setdefault(name.removesuffix(".__call__"), {})[int8] = np.asarray(value)
+
+    state_dict = flax_tree_to_state_dict(tree)
+    port_layers = {}
+    for int8 in (True, False):
+        model = EfficientNetV2Features("efficientnetv2_b0", conv_int8=int8)
+        model.load_state_dict(state_dict, strict=True)
+        handles = [m.register_forward_hook(
+            lambda mod, args, out, name=name, int8=int8: port_layers.setdefault(name, {}).update(
+                {int8: out.permute(0, 2, 3, 1).numpy()}))
+            for name, m in model.named_modules()
+            if type(m) in (QuantConv, Conv2dSame) and m.groups == 1 and name != "conv_stem"]
+        with torch.inference_mode():
+            model.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
+        for h in handles:
+            h.remove()
+    names = [n for n in jax_layers if n in port_layers]  # JAX's order; its SE convs aside
+    assert len(names) == len(port_layers) == 41
+    decay_jax = [corr(jax_layers[n][True], jax_layers[n][False]) for n in names]
+    decay_port = [corr(port_layers[n][True], port_layers[n][False]) for n in names]
+    np.testing.assert_allclose(decay_port, decay_jax, atol=DECAY_ATOL, rtol=0)
+    assert decay_jax[0] > 0.999 and decay_jax[-1] < 0.9  # JAX's own decay, which the port follows
