@@ -1,19 +1,17 @@
 // s8 x s8 -> s32 convolutions for Hopper (sm_90a) that quantize their
 // compute-dtype input while staging it and dequantize in their epilogue: the
-// int8 encoder convs (models/quantize.py::QuantConv), one launch a conv.
+// int8 encoder's k x k convs (models/quantize.py::QuantConv), one launch a
+// conv.
 //
 // Replaces no Pallas kernel. The JAX package leaves this product to XLA's s8
 // convolution (ball_action_spotting_tpu/models/quantize.py:92-95,
 // conv_general_dilated with preferred_element_type=int32) and its quantize
 // and dequantize to XLA's fused elementwise code; PyTorch has neither an int8
-// convolution on CUDA nor that fusion. Two entry points share one kernel
-// template:
-//  - int8_conv_forward: the k x k convs, and the 1 x 1 convs that are not a
-//    plain GEMM (stride 2, 16 pixels or fewer, an odd C_out). The tile is
-//    kWM rows of 32 output pixels of one image.
-//  - int8_gemm_forward: a 1 x 1 conv at stride 1 without padding, the GEMM
-//    (M = N*H*W pixels) x (K = C) by (K x C_out) int8 weights, K-major. The
-//    tile is one run of 32*kWM pixels.
+// convolution on CUDA nor that fusion. int8_conv_forward takes the k x k
+// convs and the 1 x 1 convs that csrc/int8_gemm.cu does not (stride 2, 16
+// pixels or fewer, an odd C_out, rows TMA cannot read:
+// ops/int8_conv.py::gemm_takes). The tile is kWM rows of 32 output pixels of
+// one image.
 //
 // out[n, oy, ox, o] = f(sum_{dy, dx, c} q(x[n, oy*s - pt + dy, ox*s - pl + dx, c])
 //                                      * w[o, dy, dx, c])
@@ -44,8 +42,7 @@
 //
 // Bound on an H100 SXM: the bytes. At the flagship's convs for a TTA-on
 // chunk (batch 256) the compute-dtype input read once and the output written
-// once take 0.54-1.73 ms (k x k) and 0.19-0.86 ms (the 1 x 1 shapes that
-// chip_smoke.py times) at 3.35 TB/s, against at most 0.56 ms of s8
+// once take 0.54-1.73 ms at 3.35 TB/s, against at most 0.56 ms of s8
 // operations at 1979 TOP/s.
 //
 // Design. An implicit GEMM: M = output pixels, N = output channels, K =
@@ -53,11 +50,11 @@
 // the pixels, 32 each; kWN along the channels, 16*kG each) walks its tiles
 // of pixels persistently (blockIdx.x, + gridDim.x, ...; as many blocks as fit
 // on the card) and, over each tile, every channel tile of C_out (BN =
-// 16*kG*kWN: 16, 32, 64, 96 or 128 by C_out; 192 for the GEMM past 128), so
+// 16*kG*kWN: 16, 32, 64, 96 or 128 by C_out), so
 // that each input byte is quantized once a tile however wide C_out is. A
 // step is one pass over C of one channel tile: it stages the tile's input
-// rows and columns (up to 4 segments of 16 channels a pass for k x k, up to
-// 16 for the GEMM) with 16-byte cp.async copies of the raw compute-dtype
+// rows and columns (up to 4 segments of 16 channels a pass) with 16-byte
+// cp.async copies of the raw compute-dtype
 // bytes into a ring of kStages slots (zeros outside the image and past C;
 // rows that are not 16-byte aligned are copied byte by byte), so that the
 // next step's loads are in flight while this one is quantized and
@@ -92,8 +89,7 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 2;                 // ring slots of staged input
-constexpr int kConvSegments = 4;           // 16-channel segments a pass, k x k
-constexpr int kGemmSegments = 16;          // and for the GEMM
+constexpr int kConvSegments = 4;           // 16-channel segments a pass
 constexpr int kSmemLimit = 227 * 1024;     // one block's shared memory on an H100
 constexpr int kTwoBlocks = 113 * 1024;     // a block's share when two fit on an SM
 
@@ -354,17 +350,16 @@ struct Cursor {
 };
 
 // kWM warps along the pixels (32 each), kWN along the channels (16 kG
-// each). kRows: the tile is one run of 32 kWM pixels (the GEMM, over an
-// "image" of 1 x M pixels), else kWM rows of 32. Three blocks an SM where
-// the channel tile is 16 (its sums need few registers), else two.
-template <int kWM, int kWN, int kG, bool kRows>
+// each); the tile is kWM rows of 32 pixels. Three blocks an SM where the
+// channel tile is 16 (its sums need few registers), else two.
+template <int kWM, int kWN, int kG>
 __global__ void __launch_bounds__(kThreads, 16 * kG * kWN <= 16 ? 3 : 2)
 int8_kernel(const unsigned char* __restrict__ x, const float* __restrict__ sx_ptr,
             const int8_t* __restrict__ wq, const float* __restrict__ s_w, void* __restrict__ out,
             Geometry g) {
   static_assert(kWM * kWN == kWarps, "eight warps");
-  constexpr int kTileH = kRows ? 1 : kWM;
-  constexpr int kTileW = kRows ? 32 * kWM : 32;
+  constexpr int kTileH = kWM;
+  constexpr int kTileW = 32;
   constexpr int kBN = 16 * kG * kWN;
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L = layout(g, kBN);
@@ -626,11 +621,11 @@ int8_kernel(const unsigned char* __restrict__ x, const float* __restrict__ sx_pt
 // one pass in one block's room comes before several passes where the
 // channel tiles would quantize the input again each. Then size the grid to
 // the blocks that fit on the card, and launch.
-template <int kWM, int kWN, int kG, bool kRows>
+template <int kWM, int kWN, int kG>
 cudaError_t launch(const void* x, const float* sx, const int8_t* wq, const float* s_w, void* out,
                    Geometry g, cudaStream_t stream) {
-  constexpr int kTileH = kRows ? 1 : kWM;
-  constexpr int kTileW = kRows ? 32 * kWM : 32;
+  constexpr int kTileH = kWM;
+  constexpr int kTileW = 32;
   constexpr int kBN = 16 * kG * kWN;
   g.tiles_y = (g.ho + kTileH - 1) / kTileH;
   g.tiles_x = (g.wo + kTileW - 1) / kTileW;
@@ -641,10 +636,10 @@ cudaError_t launch(const void* x, const float* sx, const int8_t* wq, const float
   g.rh = (kTileH - 1) * g.s + g.k;
   g.rw = (kTileW - 1) * g.s + g.k;
   const int all = (g.c + 15) / 16;
-  const int most = min(all, kRows ? kGemmSegments : kConvSegments);
+  const int most = min(all, kConvSegments);
   // (budget, segments, resident weights), in order of preference
   struct Plan { size_t budget; int segs; int resident; };
-  Plan plans[6 + 2 * kGemmSegments];
+  Plan plans[6 + 2 * kConvSegments];
   int count = 0;
   const bool one_pass = most == all;
   auto single = [&](size_t budget) {
@@ -673,7 +668,7 @@ cudaError_t launch(const void* x, const float* sx, const int8_t* wq, const float
     }
   }
   if (g.segments == 0) return cudaErrorInvalidValue;  // a tile too large to stage
-  const auto kernel = int8_kernel<kWM, kWN, kG, kRows>;
+  const auto kernel = int8_kernel<kWM, kWN, kG>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
@@ -692,9 +687,7 @@ cudaError_t launch(const void* x, const float* sx, const int8_t* wq, const float
 }
 
 // The channel tile by C_out: 16, 32, 64, 96 or 128; past 128, 96 where
-// C_out is a multiple of it (192: two tiles) and else 128 for the conv, and
-// 192 for the GEMM (a run of 64 pixels by 4 warps of 48 channels).
-template <bool kRows>
+// C_out is a multiple of it (192: two tiles) and else 128.
 cudaError_t dispatch(const void* x, const void* sx, const void* wq, const void* s_w, void* out,
                      Geometry g, void* stream) {
   const float* sxp = static_cast<const float*>(sx);
@@ -705,14 +698,13 @@ cudaError_t dispatch(const void* x, const void* sx, const void* wq, const void* 
   g.oes = g.out_code == 0 || g.out_code == 3 ? 4 : 2;
   g.fast_x = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (g.c * g.esize) % 16 == 0;
   g.fast_w = reinterpret_cast<uintptr_t>(wq) % 16 == 0 && g.c % 16 == 0;
-  if (g.o <= 16) return launch<8, 1, 1, kRows>(x, sxp, wp, swp, out, g, st);
-  if (g.o <= 32) return launch<8, 1, 2, kRows>(x, sxp, wp, swp, out, g, st);
-  if (g.o <= 64) return launch<8, 1, 4, kRows>(x, sxp, wp, swp, out, g, st);
-  if (g.o <= 96) return launch<4, 2, 3, kRows>(x, sxp, wp, swp, out, g, st);
-  if (g.o <= 128) return launch<4, 2, 4, kRows>(x, sxp, wp, swp, out, g, st);
-  if constexpr (kRows) return launch<2, 4, 3, kRows>(x, sxp, wp, swp, out, g, st);
-  if (g.o % 96 == 0) return launch<4, 2, 3, kRows>(x, sxp, wp, swp, out, g, st);
-  return launch<4, 2, 4, kRows>(x, sxp, wp, swp, out, g, st);
+  if (g.o <= 16) return launch<8, 1, 1>(x, sxp, wp, swp, out, g, st);
+  if (g.o <= 32) return launch<8, 1, 2>(x, sxp, wp, swp, out, g, st);
+  if (g.o <= 64) return launch<8, 1, 4>(x, sxp, wp, swp, out, g, st);
+  if (g.o <= 96) return launch<4, 2, 3>(x, sxp, wp, swp, out, g, st);
+  if (g.o <= 128) return launch<4, 2, 4>(x, sxp, wp, swp, out, g, st);
+  if (g.o % 96 == 0) return launch<4, 2, 3>(x, sxp, wp, swp, out, g, st);
+  return launch<4, 2, 4>(x, sxp, wp, swp, out, g, st);
 }
 
 bool valid_codes(int in_code, int out_code) {
@@ -744,26 +736,5 @@ extern "C" int int8_conv_forward(const void* x, const void* s_x, const void* wq,
   g.wo = wo;
   g.in_code = in_code;
   g.out_code = out_code;
-  return dispatch<false>(x, s_x, wq, s_w, out, g, stream);
-}
-
-// The 1 x 1 conv at stride 1 without padding: x (m, c) rows, wq int8 (o, c),
-// out (m, o).
-extern "C" int int8_gemm_forward(const void* x, const void* s_x, const void* wq, const void* s_w,
-                                 void* out, int m, int c, int o, int in_code, int out_code,
-                                 void* stream) {
-  if (m < 1 || c < 1 || o < 1 || !valid_codes(in_code, out_code)) return cudaErrorInvalidValue;
-  Geometry g{};
-  g.n = 1;
-  g.h = 1;
-  g.w = m;
-  g.c = c;
-  g.o = o;
-  g.k = 1;
-  g.s = 1;
-  g.ho = 1;
-  g.wo = m;
-  g.in_code = in_code;
-  g.out_code = out_code;
-  return dispatch<true>(x, s_x, wq, s_w, out, g, stream);
+  return dispatch(x, s_x, wq, s_w, out, g, stream);
 }

@@ -35,7 +35,10 @@ its own thread of one ``ScaleGroup``: every ``QuantConv`` call waits for
 every share's max and takes their max, as ``jnp.max`` over a batch sharded
 by GSPMD does.
 
-Inference only: the s8 op has no backward.
+The gradient is JAX's: zero through the rounding, and through the scales'
+maxima where grad is enabled (the conv then takes s_w from the weight
+afresh, differentiably, not from the cache; the op's backward gives ``s_x``
+and ``s_w`` theirs, ``ops/int8_conv.py``).
 """
 
 from __future__ import annotations
@@ -131,7 +134,11 @@ class QuantConv(Conv2dSame):
 
     def _int8(self, x: torch.Tensor, s_x: torch.Tensor,
               rows_pad: tuple[int, int]) -> torch.Tensor:
-        w_q, s_w = self.quantized_weight(x.device)
+        w = self.weight
+        if torch.is_grad_enabled() and w.requires_grad:  # s_w differentiable, as in JAX
+            w_q, s_w = weight_scale(w.to(x.device))
+        else:
+            w_q, s_w = self.quantized_weight(x.device)
         left, right = same_pad(x.shape[-1], w_q.shape[1], self.stride)
         y = int8_conv2d(x.permute(0, 2, 3, 1), s_x, w_q, s_w, self.stride,
                         (*rows_pad, left, right), x.dtype)

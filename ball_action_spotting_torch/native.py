@@ -10,8 +10,9 @@ library is never loaded. The compiler writes to a name of its own process
 (``.<pid>.tmp``), renamed into place when it is done, so several processes
 that build one source at once (test workers) never load a half-written
 file. The build runs at first use, or up front through ``build_all``, which
-starts one compiler per source, all at once. A failed build raises with the
-compiler's output: nothing falls back to another implementation.
+starts one compiler per source, all at once, and records each one's seconds
+(``build_seconds``). A failed build raises with the compiler's output:
+nothing falls back to another implementation.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -35,6 +37,7 @@ class NativeLibrary:
     def __init__(self, name: str):
         self.name = name
         self.build_log = ""
+        self.build_seconds: float | None = None  # the last build's, None if none ran
         self._lib: ctypes.CDLL | None = None
         self._lock = threading.Lock()
 
@@ -64,12 +67,14 @@ class NativeLibrary:
         except OSError as exc:
             raise RuntimeError(f"cannot run {cmd[0]} to build {self.source}: {exc}") from exc
         proc.tmp_path, proc.lib_path = tmp, lib  # type: ignore[attr-defined]
+        proc.started = time.perf_counter()  # type: ignore[attr-defined]
         return proc
 
     def finish_build(self, proc: subprocess.Popen | None) -> None:
         if proc is None:
             return
         out, _ = proc.communicate()
+        self.build_seconds = time.perf_counter() - proc.started  # type: ignore[attr-defined]
         self.build_log = out
         if proc.returncode != 0:
             Path(proc.tmp_path).unlink(missing_ok=True)  # type: ignore[attr-defined]
@@ -99,11 +104,18 @@ def build_all(libraries) -> dict[str, str]:
     together) and load them. Returns each library's build log."""
     procs = [(lib, lib.start_build()) for lib in libraries]
     errors = []
-    for lib, proc in procs:  # wait for every compiler before raising
+
+    def finish(lib, proc):  # each compiler waited for in its own thread
         try:
             lib.finish_build(proc)
         except RuntimeError as exc:
             errors.append(exc)
+
+    threads = [threading.Thread(target=finish, args=pair) for pair in procs]
+    for t in threads:
+        t.start()
+    for t in threads:  # every compiler finishes before a failure is raised
+        t.join()
     if errors:
         raise errors[0]
     for lib in libraries:

@@ -2,7 +2,8 @@
 hand-written Hopper kernels (``csrc/``): each wrapper launches its kernel on
 a CUDA tensor (or raises) and runs its plain PyTorch version on a CPU
 tensor; ``KERNELS`` lists every kernel of the port (``int8_conv`` has two:
-the k × k conv and the 1 × 1 GEMM, two entry points of one source).
+the k × k conv, ``csrc/int8_conv.cu``, and the 1 × 1 GEMM,
+``csrc/int8_gemm.cu``).
 ``augment``, ``losses`` and ``mixup`` are plain PyTorch around them."""
 
 from ball_action_spotting_torch.ops import dwconv3d, gem, int8_conv, warp

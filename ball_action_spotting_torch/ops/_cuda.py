@@ -14,7 +14,7 @@ from pathlib import Path
 
 from ball_action_spotting_torch.native import NativeLibrary, build_all
 
-__all__ = ["CudaEntry", "CudaKernel", "NVCC_FLAGS", "build_all", "stream_handle"]
+__all__ = ["CudaKernel", "NVCC_FLAGS", "build_all", "stream_handle"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -84,29 +84,6 @@ class CudaKernel(NativeLibrary):
         self.launches = 0
         self.launches_by = {}
         self.launches_on = {}
-
-
-class CudaEntry(CudaKernel):
-    """Another entry point of a ``CudaKernel``'s library (one source, one
-    build), with its own name and launch counts."""
-
-    def __init__(self, library: CudaKernel, name: str, entry: str, signature: list):
-        super().__init__(name, entry, signature)
-        self.of = library
-
-    @property
-    def source(self) -> Path:
-        return self.of.source
-
-    @property
-    def library(self) -> Path:
-        return self.of.library
-
-    def start_build(self):
-        return None  # the library's own build
-
-    def load(self) -> ctypes.CDLL:
-        return self.of.load()
 
 
 def stream_handle(tensor) -> int:

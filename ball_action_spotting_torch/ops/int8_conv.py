@@ -19,16 +19,22 @@ that ``torch.export`` keeps it as one node of a sealed program.
   convolution of the int8 values: products below 2^14 and sums below 2^53;
   never float32, whose 24 bits the flagship's sums of up to 127² · 1728
   pass), then ``dequantize``.
-- On a CUDA tensor it is one launch of a hand-written kernel of
-  ``csrc/int8_conv.cu``, which quantizes while it stages the input and
-  dequantizes in its epilogue: ``GEMM_KERNEL`` (``int8_gemm_forward``) for a
-  1 × 1 conv at stride 1 without padding (``gemm_takes``), ``KERNEL``
-  (``int8_conv_forward``) for every other shape. Each counts its launches.
-  Nothing falls back to separate passes or to a float conv.
+- On a CUDA tensor it is one launch of a hand-written kernel, which
+  quantizes its compute-dtype input on the way to the s8 product and
+  dequantizes in its epilogue: ``GEMM_KERNEL`` (``csrc/int8_gemm.cu``,
+  ``int8_gemm_forward``: TMA ring, wgmma) for a 1 × 1 conv at stride 1
+  without padding whose rows TMA can read (``gemm_takes``), ``KERNEL``
+  (``csrc/int8_conv.cu``, ``int8_conv_forward``) for every other shape.
+  Each counts its launches. Nothing falls back to separate passes or to a
+  float conv.
 
-Inference only: the op registers no backward, so a gradient through it
-raises (the JAX package's gradient through ``QuantConv`` is zero at the
-rounding and flows through the scale's max).
+The gradient is JAX's (``models/quantize.py:83-96`` under ``jax.grad``):
+zero through the rounding, so none for x and w_q along the s8 product, and
+``Σ g · float32(sums) · s_w[o]`` for ``s_x``, ``Σ g · float32(sums) · s_x``
+for ``s_w[o]`` through the dequantizing product, the sums from a second
+call of the op with ``out_dtype=torch.int32`` (on the card, the kernels).
+``QuantConv`` takes its scales differentiably where grad is enabled, so
+that the gradient reaches x and the weight through the maxima.
 """
 
 from __future__ import annotations
@@ -39,14 +45,23 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ball_action_spotting_torch.ops._cuda import CudaEntry, CudaKernel, stream_handle
+from ball_action_spotting_torch.ops._cuda import CudaKernel, stream_handle
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # int8_conv_forward(x, s_x, w_q, s_w, out, n, h, w, c, o, k, s, pt, pl, ho,
 # wo, in_code, out_code, stream)
 KERNEL = CudaKernel("int8_conv", "int8_conv_forward", [_P] * 5 + [_I] * 13 + [_P])
 # int8_gemm_forward(x, s_x, w_q, s_w, out, m, c, o, in_code, out_code, stream)
-GEMM_KERNEL = CudaEntry(KERNEL, "int8_gemm", "int8_gemm_forward", [_P] * 5 + [_I] * 5 + [_P])
+GEMM_KERNEL = CudaKernel("int8_gemm", "int8_gemm_forward", [_P] * 5 + [_I] * 5 + [_P])
+# csrc/int8_gemm.cu keeps the weights in shared memory for the block's life
+# where their 64-K chunks of C_out rows (rounded up to its N sub-tile) take
+# at most this many bytes; larger weights ride its TMA ring, which needs C a
+# multiple of 16.
+GEMM_RESIDENT_BYTES = 96 * 1024
+# The filter of csrc/int8_gemm.cu: RN(v · RN(1 / s_x)) more than δ = 2^-15
+# from every half-integer rounds as RN(v / s_x) does.
+FILTER_LIMIT = 0.5 - 2.0**-15
+_FLOAT32_TINY = float(torch.finfo(torch.float32).tiny)
 _IN_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _OUT_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int32: 3}
 
@@ -91,6 +106,23 @@ def quantize(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     return xf.div_(s_x).round_().clamp_(-127, 127).to(torch.int8)
 
 
+def quantize_filtered(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    """``quantize`` by the GEMM kernel's rule (``csrc/int8_gemm.cu``'s
+    note), in float32 PyTorch, operation for operation: ``t =
+    clamp(float32(x) · RN(1 / s_x), ±127)``; where ``|t − rint(t)| <
+    FILTER_LIMIT``, ``rint(t)``, else ``quantize``'s IEEE division; all by
+    division where ``RN(1 / s_x)`` is not a finite normal number. Equal to
+    ``quantize`` bit for bit (``tests/test_torch_int8_filter.py``)."""
+    r = torch.ones_like(s_x) / s_x
+    exact = quantize(x, s_x)
+    if not (torch.isfinite(r).item() and r.abs().item() >= _FLOAT32_TINY):
+        return exact
+    t = (x.to(torch.float32) * r).clamp_(-127, 127)
+    n = t.round()
+    safe = (t - n).abs_() < FILTER_LIMIT
+    return torch.where(safe, n.to(torch.int8), exact)
+
+
 def dequantize(sums: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """int32 sums (…, O) → ``float32(sums) · scale`` rounded into
     ``out_dtype``; the sums themselves for ``torch.int32``."""
@@ -125,13 +157,28 @@ def int8_conv2d_reference(x: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor,
     return dequantize(sums, s_x * s_w, out_dtype)
 
 
+def gemm_weights_resident(c: int, o: int) -> bool:
+    """Whether the GEMM kernel keeps C × O int8 weights in shared memory
+    (``GEMM_RESIDENT_BYTES``) rather than in its TMA ring: its N sub-tile
+    is 32, 64 or 128 channels by O."""
+    width = 32 if o <= 32 else 64 if o <= 64 else 128
+    return -(-c // 64) * 64 * (-(-o // width) * width) <= GEMM_RESIDENT_BYTES
+
+
 def gemm_takes(x: torch.Tensor, w_q: torch.Tensor, stride: int, pads) -> bool:
     """Whether a conv goes to ``GEMM_KERNEL``: 1 × 1 at stride 1 without
-    padding, more than 16 pixels and an even O; every other shape goes to
-    ``KERNEL``."""
+    padding, more than 16 pixels and an even O, with x's memory as TMA
+    reads it (16-byte aligned, rows of C a multiple of 16 bytes) and the
+    weights either resident or as TMA reads them (C a multiple of 16,
+    16-byte aligned); every other shape goes to ``KERNEL``."""
     o, k = w_q.shape[:2]
+    c = x.shape[-1]
     m = x.shape[0] * x.shape[1] * x.shape[2]
-    return k == 1 and stride == 1 and not any(pads) and m > 16 and o % 2 == 0
+    if not (k == 1 and stride == 1 and not any(pads) and m > 16 and o % 2 == 0):
+        return False
+    rows = x.data_ptr() % 16 == 0 and (c * x.element_size()) % 16 == 0
+    weights = gemm_weights_resident(c, o) or (c % 16 == 0 and w_q.data_ptr() % 16 == 0)
+    return rows and weights
 
 
 def _cuda_operands(x: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor):
@@ -204,6 +251,26 @@ def _int8_conv2d_cuda_route(x, s_x, w_q, s_w, stride, pad_top, pad_bottom, pad_l
     if gemm_takes(x, w_q, stride, pads):
         return int8_gemm_cuda(x, s_x, w_q, s_w, out_dtype)
     return int8_conv_cuda(x, s_x, w_q, s_w, stride, pads, out_dtype)
+
+
+def _setup_backward(ctx, inputs, output):
+    x, s_x, w_q, s_w, stride, pad_top, pad_bottom, pad_left, pad_right, _ = inputs
+    ctx.save_for_backward(x, s_x, w_q, s_w)
+    ctx.conv = (stride, (pad_top, pad_bottom, pad_left, pad_right))
+
+
+def _backward(ctx, grad):
+    """JAX's gradient (module docstring): zero for x, none for the int8
+    w_q, and the dequantizing product's for ``s_x`` and ``s_w``."""
+    x, s_x, w_q, s_w = ctx.saved_tensors
+    stride, pads = ctx.conv
+    sums = int8_conv2d(x.detach(), s_x.detach(), w_q, s_w.detach(), stride, pads, torch.int32)
+    per_channel = (grad.to(torch.float32) * sums.to(torch.float32)).sum(dim=(0, 1, 2))
+    return (torch.zeros_like(x), (per_channel * s_w).sum(), None, per_channel * s_x,
+            None, None, None, None, None, None)
+
+
+int8_conv2d_op.register_autograd(_backward, setup_context=_setup_backward)
 
 
 @int8_conv2d_op.register_fake

@@ -204,14 +204,16 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    device), and ms a step of each in bf16. The main path is the first grid
    with TTA on.
 12. The int8 encoder convs (``int8``, ``conv_int8=True``), at the
-   flagship's full width on phase 3's weights and video: the two kernels of
-   ``csrc/int8_conv.cu``, which quantize a compute-dtype x while staging it
-   and dequantize in their epilogue, through the op's CUDA route at
-   ``INT8_EDGE_CASES`` (ragged tiles, odd sizes at stride 2, C 8 and 24,
-   1×1 edge shapes on the conv kernel, odd O, two passes over C, k 5,
-   misaligned x, the GEMM kernel's C tail, passes over K and part channel
-   tile; every output and int32 sum equal to the plain version's, each
-   case's kernel checked); the five k×k shapes of a TTA-on chunk
+   flagship's full width on phase 3's weights and video: the conv kernel of
+   ``csrc/int8_conv.cu`` and the GEMM kernel of ``csrc/int8_gemm.cu``, which
+   quantize a compute-dtype x on its way to the s8 product and dequantize in
+   their epilogue, through the op's CUDA route at ``INT8_EDGE_CASES``
+   (ragged tiles, odd sizes at stride 2, C 8 and 24, 1×1 edge shapes on the
+   conv kernel, odd O, two passes over C, k 5, misaligned x and rows TMA
+   cannot read; on the GEMM kernel K tails, an M tail below one tile,
+   weights in the ring, C_out 1152 over ragged rows, float32; every output
+   and int32 sum equal to the plain version's, each case's kernel checked);
+   the five k×k shapes of a TTA-on chunk
    (``INT8_SHAPES``, batch 256) on the conv kernel and three 1×1 shapes
    (``INT8_MM_SHAPES``) on the GEMM kernel, seeded bf16 x with s_x from
    ``activation_scale``, exact in int32 and bf16 against the plain version
@@ -227,7 +229,10 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    bf16 (logged), device and end-to-end fps of int8 and bf16 in turns, TTA
    off and on, and a chunk profile by op whose separate quantize,
    weight-quantize and dequantize ops and ``_int_mm`` calls are no more
-   than bf16's. Then, each path counted from 0: the streaming engine
+   than bf16's; a line with the GEMM kernel's device ms a TTA-off chunk
+   against the summed byte bound of the 1×1 shapes the encoder handed the
+   op in that chunk (recorded at the op) and each library's build seconds.
+   Then, each path counted from 0: the streaming engine
    against the chunked one, the device-state engine on a feed of 4 streams
    and its tick ms at buckets 1, 8, 16 beside the 40-ms limit, the sp 1×2
    grid against the unsplit engine (and its device fps beside the unsplit
@@ -699,7 +704,8 @@ def build_kernels() -> None:
     t0 = time.perf_counter()
     logs = build_all([*KERNELS, GRAY_STORE_LIBRARY])
     log({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-         "kernels": [k.name for k in KERNELS], "host": [GRAY_STORE_LIBRARY.name]})
+         "kernels": [k.name for k in KERNELS], "host": [GRAY_STORE_LIBRARY.name],
+         "seconds_by_library": {k.name: k.build_seconds for k in (*KERNELS, GRAY_STORE_LIBRARY)}})
     for name, text in logs.items():
         for line in text.splitlines():
             if "ptxas info" in line and ("registers" in line or "spill" in line):
@@ -3960,9 +3966,14 @@ INT8_SLICE = 16  # images per float64 slice of the plain version
 # C 24 (the channel tail masked); a 1×1 at stride 2, a 1×1 of 8 pixels (M ≤
 # 16) and a 1×1 with an odd O; an odd O at k3 (single-channel stores); C 80
 # (two passes, 64 + 16 channels) and O 72; the 1×1 at K 1152 on 12 pixels
-# (18 passes); k 5; a misaligned x. On the GEMM kernel: K 96; C 24 in
-# float16; a misaligned x; K 1152 (passes through the ring) and O 130 (a
-# part second channel tile) over ragged rows; float32.
+# (18 passes); k 5; a misaligned x; a 1×1 whose x is misaligned and one
+# whose bf16 rows (C 12) are not a multiple of 16 bytes, which TMA cannot
+# read. On the GEMM kernel: K 96; C 24 in float16 (a K tail inside one k32
+# step, weights resident); K 1152 (weights in the ring) and O 130 (a part
+# N sub-tile) over ragged rows; float32; an M tail below one 64-row tile;
+# K 80 (a tail chunk); C_out 1152 over ragged rows (nine N sub-tiles on one
+# quantized x); K 1152 and C_out 1152 (x through the ring again for each N
+# sub-tile); float32 with weights in the ring.
 INT8_EDGE_CASES = [
     ((2, 23, 40, 16, 16, 3, 1), torch.bfloat16, 0, "conv"),
     ((3, 9, 33, 48, 24, 3, 2), torch.float32, 0, "conv"),
@@ -3977,9 +3988,15 @@ INT8_EDGE_CASES = [
     ((2, 10, 12, 32, 64, 3, 1), torch.bfloat16, 1, "conv"),
     ((4, 23, 40, 96, 24, 1, 1), torch.bfloat16, 0, "gemm"),
     ((2, 9, 11, 24, 40, 1, 1), torch.float16, 0, "gemm"),
-    ((2, 7, 9, 32, 48, 1, 1), torch.bfloat16, 1, "gemm"),
+    ((2, 7, 9, 32, 48, 1, 1), torch.bfloat16, 1, "conv"),
     ((2, 23, 40, 1152, 130, 1, 1), torch.bfloat16, 0, "gemm"),
     ((3, 5, 7, 48, 96, 1, 1), torch.float32, 0, "gemm"),
+    ((2, 9, 10, 12, 16, 1, 1), torch.bfloat16, 0, "conv"),
+    ((1, 5, 6, 64, 32, 1, 1), torch.bfloat16, 0, "gemm"),
+    ((2, 9, 13, 80, 48, 1, 1), torch.bfloat16, 0, "gemm"),
+    ((2, 7, 9, 192, 1152, 1, 1), torch.bfloat16, 0, "gemm"),
+    ((1, 5, 13, 1152, 1152, 1, 1), torch.bfloat16, 0, "gemm"),
+    ((1, 3, 30, 1152, 192, 1, 1), torch.float32, 0, "gemm"),
 ]
 
 
@@ -4250,8 +4267,8 @@ def int8_profile(predictor, frames: np.ndarray, chunks: int = 2) -> dict:
     by_op = {e.key: e.device_time_total / 1e3 / chunks for e in prof.key_averages()
              if e.key in INT8_PROFILE_OPS}
     kernel_ms = {route: sum(e.self_device_time_total for e in prof.key_averages()
-                            if "int8_kernel<" in e.key and f", {rows}>" in e.key) / 1e3 / chunks
-                 for route, rows in (("conv", "false"), ("gemm", "true"))}
+                            if name in e.key) / 1e3 / chunks
+                 for route, name in (("conv", "int8_kernel<"), ("gemm", "int8_gemm_kernel<"))}
     calls = {e.key: e.count // chunks for e in prof.key_averages() if e.key in INT8_PASS_OPS}
     return {"tta": predictor.tta, "wall_ms_per_chunk": wall_ms,
             "device_busy_ms_per_chunk": busy_ms, "kernel_sum_ms_per_chunk": summed_ms,
@@ -4260,6 +4277,33 @@ def int8_profile(predictor, frames: np.ndarray, chunks: int = 2) -> dict:
             "int8_gemm_kernel_ms_per_chunk": kernel_ms["gemm"], "device_ms_by_op": by_op,
             "pass_op_calls_per_chunk": {op: calls.get(op, 0) for op in INT8_PASS_OPS},
             "top": top}
+
+
+def int8_gemm_chunk_bound(predictor, frames: np.ndarray) -> dict:
+    """The 1×1 convs that one chunk program of ``predictor`` hands the int8
+    op with a shape the GEMM kernel takes (``gemm_takes``), recorded at the
+    op, and their summed byte bound: x in the compute dtype read once, the
+    int8 weights, the output written once, s_w and s_x."""
+    shapes = []
+    op = int8_ops.int8_conv2d_op
+
+    def record(x, s_x, w_q, s_w, stride, pt, pb, pl, pr, out_dtype):
+        if int8_ops.gemm_takes(x, w_q, stride, (pt, pb, pl, pr)):
+            shapes.append((x.shape[0] * x.shape[1] * x.shape[2], x.shape[3], w_q.shape[0],
+                           x.element_size(), torch.empty((), dtype=out_dtype).element_size()))
+        return op(x, s_x, w_q, s_w, stride, pt, pb, pl, pr, out_dtype)
+
+    with torch.inference_mode():
+        new, carry = staged_chunk(predictor, frames)
+        int8_ops.int8_conv2d_op = record
+        try:
+            predictor.chunk_features(new, carry)
+            torch.cuda.synchronize()
+        finally:
+            int8_ops.int8_conv2d_op = op
+    nbytes = sum(m * c * es + o * c + m * o * oes + 4 * o + 4 for m, c, o, es, oes in shapes)
+    return {"gemm_convs_per_chunk": len(shapes), "gemm_bytes_per_chunk": nbytes,
+            "gemm_bound_ms_per_chunk": nbytes / HBM_BYTES_PER_S * 1e3}
 
 
 def int8_flagship(dev, card: str, weights, frames: np.ndarray, raw_bf16: np.ndarray,
@@ -4322,6 +4366,19 @@ def int8_flagship(dev, card: str, weights, frames: np.ndarray, raw_bf16: np.ndar
                  f"chunk against bf16's {bf16_calls}")
         prof["bf16_pass_op_calls_per_chunk"] = bf16_calls
         out[f"profile_int8_tta_{'on' if tta else 'off'}"] = prof
+        if not tta:  # the GEMM kernel's time a chunk against its summed bound
+            gemm = {"check": "int8_gemm_chunk", "card": card, "tta": "off",
+                    "gemm_kernel_ms_per_chunk": prof["int8_gemm_kernel_ms_per_chunk"],
+                    **int8_gemm_chunk_bound(pair["int8"], frames),
+                    "build_seconds": {k.name: k.build_seconds
+                                      for k in (int8_ops.KERNEL, int8_ops.GEMM_KERNEL)}}
+            if gemm["gemm_convs_per_chunk"] != INT8_MM_CONVS:
+                fail(f"a TTA-off int8 chunk handed the GEMM kernel {gemm['gemm_convs_per_chunk']} "
+                     f"convs, expected {INT8_MM_CONVS}")
+            ms = gemm["gemm_kernel_ms_per_chunk"]
+            gemm["share_of_bound"] = gemm["gemm_bound_ms_per_chunk"] / ms if ms > 0 else None
+            log(gemm)
+            out["gemm_chunk"] = gemm
         del pair
         torch.cuda.empty_cache()
     out["fps"] = {k: statistics.mean(v) for k, v in fps.items()}
@@ -4464,10 +4521,11 @@ def int8_sources(launches: dict) -> dict:
     paths = {"int8_inference": launches["int8_inference"],
              **{k: v for k, v in launches.items() if k.startswith("int8_")
                 and k != "int8_inference"}}
-    src = "ball_action_spotting_torch/csrc/int8_conv.cu"
+    src = "ball_action_spotting_torch/csrc/"
     replaces = "ball_action_spotting_tpu/models/quantize.py:92"
-    return {**{name: ("int8_conv", src, replaces, paths) for name in INT8_SHAPES},
-            **{name: ("int8_gemm", src, replaces, paths) for name in INT8_MM_SHAPES}}
+    return {**{name: ("int8_conv", src + "int8_conv.cu", replaces, paths) for name in INT8_SHAPES},
+            **{name: ("int8_gemm", src + "int8_gemm.cu", replaces, paths)
+               for name in INT8_MM_SHAPES}}
 
 
 def device_line() -> dict:

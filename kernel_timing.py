@@ -7,6 +7,8 @@ version of their source, on one NVIDIA GPU, at the main paths' shapes.
     python3 kernel_timing.py --kernel gem --other build/gem_parent.cu --other-abi noroot
     git show 1c8d266:ball_action_spotting_torch/csrc/int8_conv.cu > build/int8_conv_int8x.cu
     python3 kernel_timing.py --kernel int8_conv --other build/int8_conv_int8x.cu --other-abi int8x
+    git show 2051477:ball_action_spotting_torch/csrc/int8_conv.cu > build/int8_gemm_pr16.cu
+    python3 kernel_timing.py --kernel int8_gemm --other build/int8_gemm_pr16.cu
 
 Builds ``ball_action_spotting_torch/csrc/<kernel>.cu`` and the ``--other``
 source with nvcc as ``ops/_cuda.py`` does and prints ptxas' register
@@ -39,6 +41,17 @@ Each version's bf16 output is held exactly against the plain version
 (``chip_smoke.int8_exact``); each turn is the median of 10 calls timed by
 CUDA events around the call (``chip_smoke.median_ms``: the versions launch
 several kernels), in turns A B B A (and the route C first and last).
+
+``--kernel int8_gemm`` times the 1×1 GEMM kernel (``csrc/int8_gemm.cu``)
+against another source exporting ``int8_gemm_forward`` with the same C
+interface (``--other-abi current``; before ``csrc/int8_gemm.cu`` the entry
+point lived in ``csrc/int8_conv.cu``), at ``INT8_MM_SHAPES`` on a seeded
+bf16 x with s_x from ``activation_scale``: each version's int32 sums and
+bf16 output held exactly against the plain version, then one launch of
+each timed in turns A B B A, each turn the median of 10 launches by CUDA
+events behind a sleeping kernel (``chip_smoke.device_ms_events``), and
+``torch._int_mm`` on the quantized x beside them (``chip_smoke.median_ms``,
+as ``chip_smoke.py``'s ``library_ms``).
 """
 
 from __future__ import annotations
@@ -68,6 +81,7 @@ from chip_smoke import (
     bound_int8,
     card_line,
     device_ms,
+    device_ms_events,
     int8_exact,
     int8_inputs,
     median_ms,
@@ -227,6 +241,41 @@ def int8_main(other: CudaKernel, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def int8_gemm_main(kernels: dict, card: str) -> None:
+    """``--kernel int8_gemm`` (module docstring): one JSON line a shape."""
+    dev = torch.device("cuda", 0)
+    names = list(kernels)
+    for i, (label, shape) in enumerate(INT8_MM_SHAPES.items()):
+        n, h, w, c, o, _, _ = shape
+        x, s_x, w_q, s_w, pads = int8_inputs(dev, shape, 40 + i)
+        w2 = w_q.reshape(o, c)
+        outs = {code: torch.empty((n, h, w, o), dtype=dtype, device=dev)
+                for code, dtype in ((1, torch.bfloat16), (3, torch.int32))}
+
+        def call(kernel, code=1):
+            kernel.launch(x.data_ptr(), s_x.data_ptr(), w2.data_ptr(), s_w.data_ptr(),
+                          outs[code].data_ptr(), n * h * w, c, o, 1, code, stream_handle(x))
+            return outs[code]
+
+        row = {"case": label, "shape": list(shape), "dtype": "bfloat16", "card": card}
+        for name in names:
+            for code in (3, 1):
+                int8_exact(f"{label} {name} out_code {code}", call(kernels[name], code), x, s_x,
+                           w_q, s_w, 1, pads)
+            row[f"{name}_max_abs_diff"] = 0.0
+        times: dict[str, list[float]] = {name: [] for name in names}
+        for name in names + names[::-1]:
+            times[name].append(device_ms_events(lambda: call(kernels[name]), kernels[name]))
+        row["ms"] = times
+        x_q, wt = int8_ops.quantize(x, s_x).reshape(-1, c), w2.t()
+        row["int_mm_ms"] = median_ms(lambda: torch._int_mm(x_q, wt))
+        nbytes = x.numel() * 2 + w_q.numel() + n * h * w * o * 2 + o * 4 + 4
+        row["bound_ms"], row["bound_by"] = bound_int8(nbytes, 2 * n * h * w * o * c)
+        print(json.dumps(row), flush=True)
+        del x, x_q, outs
+        torch.cuda.empty_cache()
+
+
 def write_sass(kernels: dict, out_dir: Path) -> None:
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -240,7 +289,8 @@ def write_sass(kernels: dict, out_dir: Path) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernel", choices=("warp", "gem", "int8_conv"), required=True)
+    parser.add_argument("--kernel", choices=("warp", "gem", "int8_conv", "int8_gemm"),
+                        required=True)
     parser.add_argument("--other", type=Path, required=True,
                         help="another <kernel>.cu to build and time beside the repo's")
     parser.add_argument("--other-abi", choices=("current", "pr5", "noroot", "int8x"),
@@ -252,8 +302,8 @@ def main() -> int:
         raise SystemExit("kernel_timing needs a GPU")
     card = card_line()
     print(card, flush=True)
-    own = {"warp": warp_ops.KERNEL, "gem": gem_ops.KERNEL, "int8_conv": int8_ops.KERNEL}[
-        args.kernel]
+    own = {"warp": warp_ops.KERNEL, "gem": gem_ops.KERNEL, "int8_conv": int8_ops.KERNEL,
+           "int8_gemm": int8_ops.GEMM_KERNEL}[args.kernel]
     if args.other_abi != "current" and args.kernel not in OLD_SIGNATURES[args.other_abi]:
         parser.error(f"--other-abi {args.other_abi} does not apply to {args.kernel}")
     if args.kernel == "int8_conv" and args.other_abi != "int8x":
@@ -274,6 +324,9 @@ def main() -> int:
 
     if args.kernel == "int8_conv":
         int8_main(kernels[args.other.name], card)
+        return 0
+    if args.kernel == "int8_gemm":
+        int8_gemm_main(kernels, card)
         return 0
     dev = torch.device("cuda", 0)
     cases = warp_cases(dev) if args.kernel == "warp" else gem_cases(dev)

@@ -6,8 +6,9 @@ profile (device time only) stubbed, and each op's plain version counted as
 its kernel's launch on the device of its input (``count_plain_versions_on``).
 Every check of the phase holds: the s8 route against its plain version, the
 int8 main path's launches, the hooked layers, the drift and correlation
-bounds, the other engines against their counterparts with their launches;
-the kernels line's phase-12 rows build from its launches."""
+bounds, the 1×1 convs of a chunk recorded at the op for the GEMM line, the
+other engines against their counterparts with their launches; the kernels
+line's phase-12 rows build from its launches."""
 
 import numpy as np
 import torch
@@ -64,7 +65,8 @@ def test_chip_smoke_phase12_rehearsal_on_the_cpu(monkeypatch):
     for timer in ("median_ms", "device_ms_events"):
         monkeypatch.setattr(chip_smoke, timer, lambda fn, *a, **kw: 0.0)
     monkeypatch.setattr(chip_smoke, "int8_profile", lambda *a: {  # the card's profile only
-        "pass_op_calls_per_chunk": dict.fromkeys(chip_smoke.INT8_PASS_OPS, 0)})
+        "pass_op_calls_per_chunk": dict.fromkeys(chip_smoke.INT8_PASS_OPS, 0),
+        "int8_gemm_kernel_ms_per_chunk": 0.0})
     init = streaming.PredictorBase.__init__
 
     def kernel_by_default(self, *args, dw3d_use_kernel=None, dtype=torch.float32, **kwargs):

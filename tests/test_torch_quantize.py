@@ -179,12 +179,33 @@ def test_plain_sums_are_exact_beyond_float32():
     ((2, 23, 40, 64), 1, 24, 2, (0, 0, 0, 0), False),    # stride 2
     ((2, 23, 40, 64), 1, 24, 1, (0, 1, 0, 1), False),    # padded
     ((2, 23, 40, 64), 3, 24, 1, (1, 1, 1, 1), False),    # k×k
+    ((2, 23, 40, 1152), 1, 192, 1, (0, 0, 0, 0), True),  # weights in the TMA ring
+    ((2, 23, 40, 1144), 1, 192, 1, (0, 0, 0, 0), False),  # ring weights, C off 16
+    ((2, 23, 40, 24), 1, 1152, 1, (0, 0, 0, 0), True),   # C off 16, weights resident
+    ((2, 23, 40, 260), 1, 272, 1, (0, 0, 0, 0), False),  # C off 16, 5 × 384 rows: the ring
 ])
 def test_gemm_route_predicate(shape, k, o, stride, pads, takes):
     """The 1×1 GEMM kernel takes a 1×1 conv at stride 1 without padding
-    over more than 16 pixels with an even O; the conv kernel the rest."""
+    over more than 16 pixels with an even O, whose x and weights TMA or the
+    resident copy can read; the conv kernel the rest."""
     w_q = torch.zeros((o, k, k, shape[-1]), dtype=torch.int8)
     assert gemm_takes(torch.zeros(shape), w_q, stride, pads) is takes
+
+
+@pytest.mark.parametrize("dtype,c,offset,takes", [
+    (torch.bfloat16, 16, 0, True),
+    (torch.bfloat16, 12, 0, False),   # rows of 24 bytes: not a multiple of 16
+    (torch.bfloat16, 16, 1, False),   # x 2 bytes past a 16-byte boundary
+    (torch.float32, 12, 0, True),     # rows of 48 bytes
+    (torch.float32, 12, 2, False),    # x 8 bytes past a 16-byte boundary
+])
+def test_gemm_route_needs_rows_tma_reads(dtype, c, offset, takes):
+    """x goes to the GEMM kernel only where TMA can read its rows:
+    16-byte aligned, a multiple of 16 bytes long."""
+    flat = torch.zeros(offset + 2 * 23 * 40 * c, dtype=dtype)
+    x = flat[offset:].view(2, 23, 40, c)
+    w_q = torch.zeros((24, 1, 1, c), dtype=torch.int8)
+    assert gemm_takes(x, w_q, 1, (0, 0, 0, 0)) is takes
 
 
 def int8_case(shape: tuple, o: int, k: int, dtype: torch.dtype, seed: int):
@@ -293,13 +314,35 @@ def test_weight_quantization_is_cached_per_weight_version(monkeypatch):
     check(4)
 
 
-def test_quantconv_has_no_backward():
-    """Inference only: a gradient through the s8 op raises."""
-    conv = QuantConv(16, 8, 3, 1)
-    torch.nn.init.normal_(conv.weight)
-    out = conv(torch.randn(1, 16, 5, 5))
-    with pytest.raises(RuntimeError):
-        out.sum().backward()
+GRAD_RTOL = 1e-5  # × max|JAX's gradient|: float32 sums of g · y in another order
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_quantconv_gradient_matches_jax(k):
+    """``jax.grad`` through JAX's jitted ``QuantConv`` and the port's
+    backward (``bas_torch::int8_conv2d``'s formula, the differentiable
+    scales) agree on x and the weight in float32: zero through the rounding,
+    the dequantizing product's gradient through s_x's max to x and s_w's
+    per-channel max to the weight."""
+    rng = np.random.default_rng(40 + k)
+    x = (rng.normal(size=(2, 7, 9, 16)) * 2).astype(np.float32)
+    g = rng.normal(size=(2, 7, 9, 24)).astype(np.float32)
+    jconv = JaxQuantConv(features=24, kernel_size=(k, k))
+    variables = jconv.init(jax.random.PRNGKey(k), jnp.asarray(x))
+
+    def loss(v, xx):
+        return jnp.sum(jconv.apply(v, xx) * g)
+
+    grad_v, grad_x = jax.jit(jax.grad(loss, argnums=(0, 1)))(variables, jnp.asarray(x))
+    conv = port_quantconv(np.asarray(variables["params"]["kernel"]), 1)
+    xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy()).requires_grad_(True)
+    (conv(xt).permute(0, 2, 3, 1) * torch.from_numpy(g)).sum().backward()
+    for got, ref in ((xt.grad.permute(0, 2, 3, 1), grad_x),
+                     (conv.weight.grad.permute(2, 3, 1, 0), grad_v["params"]["kernel"])):
+        ref = np.asarray(ref)
+        assert np.abs(ref).max() > 0
+        np.testing.assert_allclose(got.numpy(), ref, rtol=GRAD_RTOL,
+                                   atol=GRAD_RTOL * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("n", [2, 3, 8])
