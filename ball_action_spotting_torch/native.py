@@ -4,9 +4,10 @@ gather (``data/gray_store.py``, g++).
 
 Each source is compiled into its own shared library with a plain C
 interface, loaded with ``ctypes``, under ``build/torch_kernels/`` beside the
-package. The library's name carries a hash of its source
-(``lib<name>-<hash>.so``), so an edited source is rebuilt and a stale
-library is never loaded. The compiler writes to a name of its own process
+package. The library's name carries a hash of its source and of the local
+headers it includes (``#include "..."``, followed recursively;
+``lib<name>-<hash>.so``), so an edited source or header is rebuilt and a
+stale library is never loaded. The compiler writes to a name of its own process
 (``.<pid>.tmp``), renamed into place when it is done, so several processes
 that build one source at once (test workers) never load a half-written
 file. The build runs at first use, or up front through ``build_all``, which
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -27,6 +29,20 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(source: Path) -> list[Path]:
+    """``source`` and the local headers it includes (``#include "..."``,
+    relative to the including file), each once, in the order met."""
+    files, todo = [], [source]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / name.decode() for name in _LOCAL_INCLUDE.findall(path.read_bytes())]
+    return files
 
 
 class NativeLibrary:
@@ -47,7 +63,10 @@ class NativeLibrary:
 
     @property
     def library(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:12]
+        digest = hashlib.sha256()
+        for path in source_files(self.source):
+            digest.update(path.read_bytes())
+        digest = digest.hexdigest()[:12]
         return BUILD_DIR / f"lib{self.name}-{digest}.so"
 
     def compile_command(self, output: Path) -> list[str]:

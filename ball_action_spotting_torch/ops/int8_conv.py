@@ -21,12 +21,16 @@ that ``torch.export`` keeps it as one node of a sealed program.
   pass), then ``dequantize``.
 - On a CUDA tensor it is one launch of a hand-written kernel, which
   quantizes its compute-dtype input on the way to the s8 product and
-  dequantizes in its epilogue: ``GEMM_KERNEL`` (``csrc/int8_gemm.cu``,
+  dequantizes in its epilogue, chosen by the shape before the launch
+  (``_int8_conv2d_cuda_route``): ``GEMM_KERNEL`` (``csrc/int8_gemm.cu``,
   ``int8_gemm_forward``: TMA ring, wgmma) for a 1 × 1 conv at stride 1
-  without padding whose rows TMA can read (``gemm_takes``), ``KERNEL``
-  (``csrc/int8_conv.cu``, ``int8_conv_forward``) for every other shape.
-  Each counts its launches. Nothing falls back to separate passes or to a
-  float conv.
+  without padding whose rows TMA can read (``gemm_takes``), else
+  ``CONV3X3_KERNEL`` (``csrc/int8_conv3x3.cu``, ``int8_conv3x3_forward``:
+  TMA halo boxes, wgmma) for a 3 × 3 conv it takes (``conv3x3_takes``),
+  else ``KERNEL`` (``csrc/int8_conv.cu``, ``int8_conv_forward``) for every
+  other shape. Each counts its launches. A kernel that refuses a shape its
+  predicate gave it raises; nothing falls back to another kernel, to
+  separate passes or to a float conv.
 
 The gradient is JAX's (``models/quantize.py:83-96`` under ``jax.grad``):
 zero through the rounding, so none for x and w_q along the s8 product, and
@@ -53,12 +57,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("int8_conv", "int8_conv_forward", [_P] * 5 + [_I] * 13 + [_P])
 # int8_gemm_forward(x, s_x, w_q, s_w, out, m, c, o, in_code, out_code, stream)
 GEMM_KERNEL = CudaKernel("int8_gemm", "int8_gemm_forward", [_P] * 5 + [_I] * 5 + [_P])
+# int8_conv3x3_forward(x, s_x, w_q, s_w, out, n, h, w, c, o, s, pt, pl, ho,
+# wo, in_code, out_code, stream)
+CONV3X3_KERNEL = CudaKernel("int8_conv3x3", "int8_conv3x3_forward", [_P] * 5 + [_I] * 12 + [_P])
 # csrc/int8_gemm.cu keeps the weights in shared memory for the block's life
 # where their 64-K chunks of C_out rows (rounded up to its N sub-tile) take
 # at most this many bytes; larger weights ride its TMA ring, which needs C a
 # multiple of 16.
 GEMM_RESIDENT_BYTES = 96 * 1024
-# The filter of csrc/int8_gemm.cu: RN(v · RN(1 / s_x)) more than δ = 2^-15
+# The filter of csrc/int8_hopper.cuh: RN(v · RN(1 / s_x)) more than δ = 2^-15
 # from every half-integer rounds as RN(v / s_x) does.
 FILTER_LIMIT = 0.5 - 2.0**-15
 _FLOAT32_TINY = float(torch.finfo(torch.float32).tiny)
@@ -107,8 +114,8 @@ def quantize(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_filtered(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
-    """``quantize`` by the GEMM kernel's rule (``csrc/int8_gemm.cu``'s
-    note), in float32 PyTorch, operation for operation: ``t =
+    """``quantize`` by the GEMM and 3 × 3 kernels' rule
+    (``csrc/int8_hopper.cuh``'s note), in float32 PyTorch, operation for operation: ``t =
     clamp(float32(x) · RN(1 / s_x), ±127)``; where ``|t − rint(t)| <
     FILTER_LIMIT``, ``rint(t)``, else ``quantize``'s IEEE division; all by
     division where ``RN(1 / s_x)`` is not a finite normal number. Equal to
@@ -170,7 +177,7 @@ def gemm_takes(x: torch.Tensor, w_q: torch.Tensor, stride: int, pads) -> bool:
     padding, more than 16 pixels and an even O, with x's memory as TMA
     reads it (16-byte aligned, rows of C a multiple of 16 bytes) and the
     weights either resident or as TMA reads them (C a multiple of 16,
-    16-byte aligned); every other shape goes to ``KERNEL``."""
+    16-byte aligned); every other shape goes to ``conv3x3_takes``' test."""
     o, k = w_q.shape[:2]
     c = x.shape[-1]
     m = x.shape[0] * x.shape[1] * x.shape[2]
@@ -179,6 +186,62 @@ def gemm_takes(x: torch.Tensor, w_q: torch.Tensor, stride: int, pads) -> bool:
     rows = x.data_ptr() % 16 == 0 and (c * x.element_size()) % 16 == 0
     weights = gemm_weights_resident(c, o) or (c % 16 == 0 and w_q.data_ptr() % 16 == 0)
     return rows and weights
+
+
+# csrc/int8_conv3x3.cu's plan: an instance by C_out (its N: C_out rounded up
+# to 16, 64, 128 or 192) has tiles of 16 output columns by 4·kMB rows (kMB
+# m64 blocks), 3 consumer warpgroups where N is 16 (kMB 4) or 128 (kMB 1)
+# and two ring stages each fit, else 2 (kMB 2 where N ≤ 64, else 1),
+# shared memory of 227 KB in 1024-byte aligned parts, three staging buffers
+# a consumer warp (16 pixels of N 4-byte channels, at most 128 bytes a
+# pixel) and up to 8 ring stages a consumer.
+CONV3X3_SMEM = 227 * 1024
+CONV3X3_MAX_STAGES = 8
+
+
+def _conv3x3_stages(cs: int, n: int, stride: int, esize: int, consumers: int, blocks: int) -> int:
+    """The kernel's ``plan``, the same sum: the resident weights, each
+    consumer's int8 tile and staging buffers, the scale table and the
+    mbarriers, then the ring stages that fit, each an input box of rows
+    (4·kMB − 1)·s + 3 by columns 15·s + 3 by 16·cs channels."""
+    r1k = lambda v: -(-v // 1024) * 1024  # noqa: E731
+    positions = ((4 * blocks - 1) * stride + 3) * (15 * stride + 3)
+    stage = r1k(positions * 16 * cs * esize)
+    steps = (9 * cs + 1) // 2
+    fixed = (1024 + (steps + 1) // 2 * n * 64
+             + consumers * (r1k(positions * (cs | 1) * 16) + 4 * 3 * 16 * min(4 * n, 128))
+             + r1k(n * 4) + 1024)
+    return min(CONV3X3_MAX_STAGES, (CONV3X3_SMEM - fixed) // (consumers * stage))
+
+
+def conv3x3_plan(c: int, o: int, stride: int, esize: int) -> tuple[int, int, int]:
+    """(consumer warpgroups, m64 blocks a tile, ring stages a consumer) of
+    the instance ``csrc/int8_conv3x3.cu`` launches for a 3 × 3 conv of C
+    ``c`` (``esize``-byte elements) to O ``o`` at ``stride``; below 2
+    stages the kernel refuses the shape."""
+    cs = -(-c // 16)
+    n = 16 if o <= 16 else 64 if o <= 64 else 128 if o <= 128 else 192
+    if n in (16, 128):
+        blocks = 4 if n == 16 else 1
+        stages = _conv3x3_stages(cs, n, stride, esize, 3, blocks)
+        if stages >= 2:
+            return 3, blocks, stages
+    blocks = 2 if n <= 64 else 1
+    return 2, blocks, _conv3x3_stages(cs, n, stride, esize, 2, blocks)
+
+
+def conv3x3_takes(x: torch.Tensor, w_q: torch.Tensor, stride: int) -> bool:
+    """Whether a conv goes to ``CONV3X3_KERNEL``: 3 × 3 at stride 1 or 2,
+    C at most 48, O a multiple of 8 up to 192, x's memory as TMA reads it
+    (16-byte aligned, rows of C a multiple of 16 bytes), and at least two
+    ring stages (``conv3x3_plan``). Any padding: TMA's zero fill is it."""
+    o, k = w_q.shape[:2]
+    c = x.shape[-1]
+    if not (k == 3 and stride in (1, 2) and c <= 48 and o % 8 == 0 and o <= 192):
+        return False
+    if x.data_ptr() % 16 != 0 or (c * x.element_size()) % 16 != 0:
+        return False
+    return conv3x3_plan(c, o, stride, x.element_size())[2] >= 2
 
 
 def _cuda_operands(x: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor):
@@ -207,6 +270,24 @@ def int8_conv_cuda(x: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor, s_w: t
         KERNEL.launch(x.data_ptr(), s_x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(),
                       out.data_ptr(), n, h, w, c, o, k, stride, pads[0], pads[2], ho, wo,
                       _IN_CODE[x.dtype], _OUT_CODE[out_dtype], stream_handle(x))
+    return out
+
+
+def int8_conv3x3_cuda(x: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor,
+                      s_w: torch.Tensor, stride: int, pads: tuple[int, int, int, int],
+                      out_dtype: torch.dtype) -> torch.Tensor:
+    """One launch of ``int8_conv3x3_forward`` (``CONV3X3_KERNEL``)."""
+    ho, wo = _check(x, s_x, w_q, s_w, stride, pads, out_dtype)
+    x, s_x, w_q, s_w = _cuda_operands(x, s_x, w_q, s_w)
+    n, h, w, c = x.shape
+    o = w_q.shape[0]
+    out = torch.empty((n, ho, wo, o), dtype=out_dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        CONV3X3_KERNEL.launch(x.data_ptr(), s_x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(),
+                              out.data_ptr(), n, h, w, c, o, stride, pads[0], pads[2], ho, wo,
+                              _IN_CODE[x.dtype], _OUT_CODE[out_dtype], stream_handle(x))
     return out
 
 
@@ -246,10 +327,13 @@ def int8_conv2d_op(x: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor, s_w: t
 def _int8_conv2d_cuda_route(x, s_x, w_q, s_w, stride, pad_top, pad_bottom, pad_left,
                             pad_right, out_dtype):
     """A CUDA tensor's route: ``GEMM_KERNEL`` where ``gemm_takes`` the
-    shape, else ``KERNEL``."""
+    shape, else ``CONV3X3_KERNEL`` where ``conv3x3_takes`` it, else
+    ``KERNEL``."""
     pads = (pad_top, pad_bottom, pad_left, pad_right)
     if gemm_takes(x, w_q, stride, pads):
         return int8_gemm_cuda(x, s_x, w_q, s_w, out_dtype)
+    if conv3x3_takes(x, w_q, stride):
+        return int8_conv3x3_cuda(x, s_x, w_q, s_w, stride, pads, out_dtype)
     return int8_conv_cuda(x, s_x, w_q, s_w, stride, pads, out_dtype)
 
 

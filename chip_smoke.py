@@ -204,24 +204,30 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    device), and ms a step of each in bf16. The main path is the first grid
    with TTA on.
 12. The int8 encoder convs (``int8``, ``conv_int8=True``), at the
-   flagship's full width on phase 3's weights and video: the conv kernel of
-   ``csrc/int8_conv.cu`` and the GEMM kernel of ``csrc/int8_gemm.cu``, which
-   quantize a compute-dtype x on its way to the s8 product and dequantize in
-   their epilogue, through the op's CUDA route at ``INT8_EDGE_CASES``
-   (ragged tiles, odd sizes at stride 2, C 8 and 24, 1×1 edge shapes on the
-   conv kernel, odd O, two passes over C, k 5, misaligned x and rows TMA
-   cannot read; on the GEMM kernel K tails, an M tail below one tile,
-   weights in the ring, C_out 1152 over ragged rows, float32; every output
-   and int32 sum equal to the plain version's, each case's kernel checked);
-   the five k×k shapes of a TTA-on chunk
-   (``INT8_SHAPES``, batch 256) on the conv kernel and three 1×1 shapes
-   (``INT8_MM_SHAPES``) on the GEMM kernel, seeded bf16 x with s_x from
-   ``activation_scale``, exact in int32 and bf16 against the plain version
-   (quantize, float64 sums in slices of 16 images, dequantize), timed as in
-   phase 2 beside cuDNN's bf16 conv (k×k) or ``torch._int_mm`` on the
-   quantized x (1×1). Then the flagship int8 engine (bf16, chunk 128,
-   feature carry): the main path TTA on with the launch counters at 0 (5
-   conv-kernel and 36 GEMM-kernel launches per encoder call, GeM 3,
+   flagship's full width on phase 3's weights and video: the 3×3 kernel of
+   ``csrc/int8_conv3x3.cu``, the GEMM kernel of ``csrc/int8_gemm.cu`` and
+   the conv kernel of ``csrc/int8_conv.cu`` (the shapes the other two
+   refuse), which quantize a compute-dtype x on its way to the s8 product
+   and dequantize in their epilogue, through the op's CUDA route at
+   ``INT8_EDGE_CASES`` (counted as the path ``int8_edges``; on the 3×3
+   kernel taps paired at C 16 and a step across taps at C 48, C 8 and 24,
+   C_out 16 to 192, odd sizes at stride 2, ragged tiles, float32 and
+   float16; on the conv kernel odd O, two passes over C, k 5, 1×1 edge
+   shapes, misaligned x, rows TMA cannot read and a 3×3 whose ring does
+   not fit; on the GEMM kernel K tails, an M tail below one tile, weights
+   in the ring, C_out 1152 over ragged rows, float32; every output and
+   int32 sum equal to the plain version's, each case's kernel checked by
+   the three launch counters); the five k×k shapes of a TTA-on chunk
+   (``INT8_SHAPES``, batch 256) on the 3×3 kernel, three 1×1 shapes
+   (``INT8_MM_SHAPES``) on the GEMM kernel and one float32 shape that the
+   3×3 kernel refuses (``INT8_CONV_SHAPES``) on the conv kernel, seeded x
+   with s_x from ``activation_scale``, exact in int32 and the compute dtype
+   against the plain version (quantize, float64 sums in slices of 16
+   images, dequantize), timed as in phase 2 beside cuDNN's conv in the
+   compute dtype (k×k) or ``torch._int_mm`` on the quantized x (1×1). Then
+   the flagship int8 engine (bf16, chunk 128, feature carry): the main path
+   TTA on with the launch counters at 0 (5 launches of the 3×3 kernel, 36
+   of the GEMM kernel and none of the conv kernel per encoder call, GeM 3,
    dwconv3d 12), a TTA-off chunk whose 41 quantized layers a forward hook
    holds against the plain version on their captured inputs, exactly, the
    drift from phase 3's bf16 predictions (< 0.15), the encoder features on
@@ -229,16 +235,18 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    bf16 (logged), device and end-to-end fps of int8 and bf16 in turns, TTA
    off and on, and a chunk profile by op whose separate quantize,
    weight-quantize and dequantize ops and ``_int_mm`` calls are no more
-   than bf16's; a line with the GEMM kernel's device ms a TTA-off chunk
-   against the summed byte bound of the 1×1 shapes the encoder handed the
-   op in that chunk (recorded at the op) and each library's build seconds.
+   than bf16's; a line with the GEMM and 3×3 kernels' device ms a TTA-off
+   chunk, the GEMM's against the summed byte bound of the 1×1 shapes the
+   encoder handed the op in that chunk (recorded at the op), and each
+   library's build seconds.
    Then, each path counted from 0: the streaming engine
    against the chunked one, the device-state engine on a feed of 4 streams
    and its tick ms at buckets 1, 8, 16 beside the 40-ms limit, the sp 1×2
    grid against the unsplit engine (and its device fps beside the unsplit
    engine's, TTA on, in turns), the frame-carry engine exported and
    reloaded (41 ``int8_conv2d`` nodes), and the data-share grid on the
-   visible cards; each launches both int8 kernels, GeM and dwconv3d.
+   visible cards; each launches the 3×3 and GEMM kernels, GeM and
+   dwconv3d.
 13. Prints the ``kernels`` JSON line (one row per kernel and main path:
    GeM on the inference and on the training path, the depthwise conv, and
    the warp's H and V passes, each with its own launches and bound, and
@@ -247,10 +255,11 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    depthwise conv at the serving and the multi-channel shapes, each with
    its paths; then GeM's band-partial launch and the depthwise conv at
    phase 11's band shapes, with the spatial paths, GeM's with the banded
-   train step's too; then the int8 conv kernel at phase 12's k×k shapes
+   train step's too; then the int8 3×3 kernel at phase 12's k×k shapes
    with cuDNN's bf16 time beside it and the int8 GEMM kernel at its 1×1
-   shapes with ``_int_mm``'s, both with the int8 paths), then the device
-   line last.
+   shapes with ``_int_mm``'s, both with the int8 paths, and the int8 conv
+   kernel at its float32 shape with cuDNN's float32 time and the edge
+   cases' path), then the device line last.
 
 Float32 comparisons run with TF32 off (``torch.backends.cudnn.allow_tf32``
 and ``torch.backends.cuda.matmul.allow_tf32`` set False): cuDNN would
@@ -3956,28 +3965,43 @@ INT8_MM_SHAPES = {
     "int8_gemm_blocks_5_7_pwl": (2 * CHUNK, 23, 40, 1152, 192, 1, 1),
     "int8_gemm_blocks_5_7_pw": (2 * CHUNK, 23, 40, 192, 1152, 1, 1),
 }
+# The k×k conv kernel of csrc/int8_conv.cu, which the five k×k shapes no
+# longer take, at blocks_2_0's shape in float32 (a float32 int8 engine's),
+# whose two ring stages the 3×3 kernel cannot fit.
+INT8_CONV_SHAPES = {
+    "int8_conv_blocks_2_0_float32": (2 * CHUNK, 184, 320, 32, 128, 3, 2),
+}
 INT8_SLICE = 16  # images per float64 slice of the plain version
 # The int8 conv's edge shapes through the op's CUDA route, each against the
 # plain version, exactly: (N, H, W, C, O, k, stride), the compute dtype (of x
 # and the output; the int32 sums are checked too), x's offset in elements
 # past a 16-byte boundary (its rows then copied byte by byte), and the
-# kernel the shape takes. On the conv kernel: ragged row and column tiles (H
-# 23, W 40); odd H and W at stride 2 and a part channel tile (O 24); C 8 and
-# C 24 (the channel tail masked); a 1×1 at stride 2, a 1×1 of 8 pixels (M ≤
-# 16) and a 1×1 with an odd O; an odd O at k3 (single-channel stores); C 80
-# (two passes, 64 + 16 channels) and O 72; the 1×1 at K 1152 on 12 pixels
-# (18 passes); k 5; a misaligned x; a 1×1 whose x is misaligned and one
-# whose bf16 rows (C 12) are not a multiple of 16 bytes, which TMA cannot
-# read. On the GEMM kernel: K 96; C 24 in float16 (a K tail inside one k32
-# step, weights resident); K 1152 (weights in the ring) and O 130 (a part
-# N sub-tile) over ragged rows; float32; an M tail below one 64-row tile;
-# K 80 (a tail chunk); C_out 1152 over ragged rows (nine N sub-tiles on one
-# quantized x); K 1152 and C_out 1152 (x through the ring again for each N
-# sub-tile); float32 with weights in the ring.
+# kernel the shape takes. On the 3×3 kernel (each of its six instances):
+# ragged row and column tiles (H 23, W 40) with C 16 (two taps a k32 step)
+# and C_out 16 (three consumers, 16 × 16 tiles); C 8 in float16; C 48 (a
+# step across two taps) to C_out 192 at odd H and W; stride 2 at odd H and
+# W (the extra SAME row and column); float16 at stride 2 to C_out 128 (two
+# consumers: a third's ring does not fit); C 24 (a unit's tail past C) to O
+# 40; float32 to O 72 (three consumers); float32 to C_out 16 (two
+# consumers, 8 × 16 tiles); C 48 to C_out 16. On the conv
+# kernel: odd H and W at stride 2 and a part channel tile (O 24) in
+# float32, whose ring the 3×3 kernel cannot fit; ragged tiles at an odd O;
+# C 8 to O 12; a 1×1 at stride 2, a 1×1 of 8 pixels (M ≤ 16) and a 1×1 with
+# an odd O; an odd O at k3 (single-channel stores); C 80 (two passes, 64 +
+# 16 channels) and O 72; the 1×1 at K 1152 on 12 pixels (18 passes); k 5;
+# a misaligned x; a 1×1 whose x is misaligned and one whose bf16 rows (C
+# 12) are not a multiple of 16 bytes, which TMA cannot read; a 3×3 at
+# stride 2 whose two ring stages do not fit. On the GEMM kernel: K 96; C 24
+# in float16 (a K tail inside one k32 step, weights resident); K 1152
+# (weights in the ring) and O 130 (a part N sub-tile) over ragged rows;
+# float32; an M tail below one 64-row tile; K 80 (a tail chunk); C_out
+# 1152 over ragged rows (nine N sub-tiles on one quantized x); K 1152 and
+# C_out 1152 (x through the ring again for each N sub-tile); float32 with
+# weights in the ring.
 INT8_EDGE_CASES = [
-    ((2, 23, 40, 16, 16, 3, 1), torch.bfloat16, 0, "conv"),
+    ((2, 23, 40, 16, 16, 3, 1), torch.bfloat16, 0, "conv3x3"),
     ((3, 9, 33, 48, 24, 3, 2), torch.float32, 0, "conv"),
-    ((2, 11, 13, 8, 8, 3, 1), torch.float16, 0, "conv"),
+    ((2, 11, 13, 8, 8, 3, 1), torch.float16, 0, "conv3x3"),
     ((2, 9, 10, 24, 40, 1, 2), torch.bfloat16, 0, "conv"),
     ((1, 2, 4, 16, 16, 1, 1), torch.bfloat16, 0, "conv"),
     ((2, 23, 40, 32, 17, 1, 1), torch.bfloat16, 0, "conv"),
@@ -3997,7 +4021,21 @@ INT8_EDGE_CASES = [
     ((2, 7, 9, 192, 1152, 1, 1), torch.bfloat16, 0, "gemm"),
     ((1, 5, 13, 1152, 1152, 1, 1), torch.bfloat16, 0, "gemm"),
     ((1, 3, 30, 1152, 192, 1, 1), torch.float32, 0, "gemm"),
+    ((2, 15, 17, 48, 192, 3, 1), torch.bfloat16, 0, "conv3x3"),
+    ((2, 15, 17, 16, 64, 3, 2), torch.bfloat16, 0, "conv3x3"),
+    ((3, 9, 33, 32, 128, 3, 2), torch.float16, 0, "conv3x3"),
+    ((2, 10, 12, 24, 40, 3, 1), torch.bfloat16, 0, "conv3x3"),
+    ((2, 7, 9, 32, 72, 3, 1), torch.float32, 0, "conv3x3"),
+    ((2, 12, 20, 32, 16, 3, 1), torch.float32, 0, "conv3x3"),
+    ((2, 9, 21, 48, 16, 3, 1), torch.bfloat16, 0, "conv3x3"),
+    ((2, 23, 40, 16, 17, 3, 1), torch.bfloat16, 0, "conv"),
+    ((2, 11, 13, 8, 12, 3, 1), torch.float16, 0, "conv"),
+    ((2, 37, 29, 32, 16, 3, 2), torch.bfloat16, 0, "conv"),
 ]
+# The int8 kernels of the op's CUDA route, in the order of
+# ``int8_route_counts``.
+INT8_ROUTES = {"conv": int8_ops.KERNEL, "gemm": int8_ops.GEMM_KERNEL,
+               "conv3x3": int8_ops.CONV3X3_KERNEL}
 
 
 def bound_int8(nbytes: float, ops: float) -> tuple[float, str]:
@@ -4041,11 +4079,16 @@ def int8_exact(name: str, out: torch.Tensor, x, s_x, w_q, s_w, stride, pads) -> 
 
 
 def int8_route_counts(fn) -> tuple:
-    """(conv kernel launches, GEMM kernel launches) of one call of ``fn``."""
-    before = (int8_ops.KERNEL.launches, int8_ops.GEMM_KERNEL.launches)
+    """One call of ``fn`` and the launches it made of each kernel of
+    ``INT8_ROUTES``, in that order."""
+    before = [k.launches for k in INT8_ROUTES.values()]
     out = fn()
     torch.cuda.synchronize()
-    return out, (int8_ops.KERNEL.launches - before[0], int8_ops.GEMM_KERNEL.launches - before[1])
+    return out, tuple(k.launches - b for k, b in zip(INT8_ROUTES.values(), before))
+
+
+def int8_route_expected(route: str) -> tuple:
+    return tuple(int(r == route) for r in INT8_ROUTES)
 
 
 def check_int8_edges(dev) -> None:
@@ -4059,81 +4102,91 @@ def check_int8_edges(dev) -> None:
         for out_dtype in (dtype, torch.int32):
             out, counts = int8_route_counts(
                 lambda: int8_conv2d(x, s_x, w_q, s_w, s, pads, out_dtype))
-            expected = (1, 0) if route == "conv" else (0, 1)
-            if counts != expected:
-                fail(f"int8 edge {shape}: {counts} conv and GEMM kernel launches, "
-                     f"expected {expected}")
+            if counts != int8_route_expected(route):
+                fail(f"int8 edge {shape}: {counts} launches of {list(INT8_ROUTES)}, "
+                     f"expected {int8_route_expected(route)}")
             int8_exact(f"int8 edge {shape} {out_dtype}", out, x, s_x, w_q, s_w, s, pads)
     log({"check": "int8_conv_edges", "cases": len(INT8_EDGE_CASES), "max_abs_diff": 0.0,
          "seconds": time.perf_counter() - t0})
 
 
 def check_int8(dev, name: str, shape: tuple, seed: int) -> dict:
-    """One flagship conv of ``INT8_SHAPES`` (the conv kernel) or
-    ``INT8_MM_SHAPES`` (the GEMM kernel) on a seeded bf16 x: the int32 sums
-    and the bf16 output equal to the plain version's, then the times (the
-    op's; the kernel's wrapper called directly; the kernel's device time)
-    beside the bound (bf16 x read once, int8 weights, bf16 output written
-    once), the plain version's (float64, in slices) and the yardstick's: for
-    a 1×1 conv ``torch._int_mm`` on the quantized x (``library_ms``, the s8
-    product alone); for a k×k conv, which no PyTorch call computes in s8,
-    cuDNN's bf16 conv of the same shape (``cudnn_bf16_ms``)."""
+    """One flagship conv of ``INT8_SHAPES`` (the 3×3 kernel, bf16),
+    ``INT8_MM_SHAPES`` (the GEMM kernel, bf16) or ``INT8_CONV_SHAPES`` (the
+    conv kernel, float32) on a seeded x: the route's launch counts, the
+    int32 sums and the compute-dtype output equal to the plain version's,
+    then the times (the op's; the kernel's wrapper called directly; the
+    kernel's device time) beside the bound (x read once, int8 weights, the
+    output written once), the plain version's (float64, in slices) and the
+    yardstick's: for a 1×1 conv ``torch._int_mm`` on the quantized x
+    (``library_ms``, the s8 product alone); for a k×k conv, which no PyTorch
+    call computes in s8, cuDNN's conv of the same shape in the compute dtype
+    (``cudnn_bf16_ms``, ``cudnn_float32_ms``)."""
     n, h, w, c, o, k, s = shape
-    gemm = name in INT8_MM_SHAPES
-    kernel = int8_ops.GEMM_KERNEL if gemm else int8_ops.KERNEL
-    x, s_x, w_q, s_w, pads = int8_inputs(dev, shape, seed)
-    call = lambda dtype=torch.bfloat16: int8_conv2d(x, s_x, w_q, s_w, s, pads, dtype)  # noqa: E731
+    route = "gemm" if name in INT8_MM_SHAPES else "conv" if name in INT8_CONV_SHAPES else "conv3x3"
+    dtype = torch.float32 if route == "conv" else torch.bfloat16
+    es = torch.empty((), dtype=dtype).element_size()
+    kernel = INT8_ROUTES[route]
+    x, s_x, w_q, s_w, pads = int8_inputs(dev, shape, seed, dtype)
+    call = lambda out_dtype=dtype: int8_conv2d(x, s_x, w_q, s_w, s, pads, out_dtype)  # noqa: E731
     sums, counts = int8_route_counts(lambda: call(torch.int32))
-    if counts != ((0, 1) if gemm else (1, 0)):
-        fail(f"{name}: {counts} conv and GEMM kernel launches")
+    if counts != int8_route_expected(route):
+        fail(f"{name}: {counts} launches of {list(INT8_ROUTES)}, expected "
+             f"{int8_route_expected(route)}")
     int8_exact(f"{name} sums", sums, x, s_x, w_q, s_w, s, pads)
     del sums
     out, _ = int8_route_counts(call)
-    int8_exact(f"{name} bf16", out, x, s_x, w_q, s_w, s, pads)
+    int8_exact(f"{name} {dtype}", out, x, s_x, w_q, s_w, s, pads)
     ho, wo = out.shape[1:3]
     del out
-    direct = ((lambda: int8_ops.int8_gemm_cuda(x, s_x, w_q, s_w, torch.bfloat16)) if gemm else
-              (lambda: int8_ops.int8_conv_cuda(x, s_x, w_q, s_w, s, pads, torch.bfloat16)))
-    nbytes = x.numel() * 2 + w_q.numel() + n * ho * wo * o * 2 + o * 4 + 4
+    direct = {
+        "gemm": lambda: int8_ops.int8_gemm_cuda(x, s_x, w_q, s_w, dtype),
+        "conv3x3": lambda: int8_ops.int8_conv3x3_cuda(x, s_x, w_q, s_w, s, pads, dtype),
+        "conv": lambda: int8_ops.int8_conv_cuda(x, s_x, w_q, s_w, s, pads, dtype),
+    }[route]
+    nbytes = x.numel() * es + w_q.numel() + n * ho * wo * o * es + o * 4 + 4
     bound_ms, bound_by = bound_int8(nbytes, 2 * n * ho * wo * o * k * k * c)
+    dname = str(dtype).removeprefix("torch.")
     row = {
         "name": name, "path": "int8 inference, TTA on", "shape": list(shape),
-        "dtype": "bfloat16 -> int8 -> bfloat16", "max_abs_diff": 0.0,
+        "dtype": f"{dname} -> int8 -> {dname}", "max_abs_diff": 0.0,
         "launches_per_call": 1, "kernel_ms": median_ms(call), "direct_ms": median_ms(direct),
         "device_ms": device_ms_events(call, kernel),
         "device_ms_method": "cuda_events_behind_sleep",
-        "plain_ms": median_ms(lambda: list(int8_plain_slices(x, s_x, w_q, s_w, s, pads,
-                                                             torch.bfloat16)),
+        "plain_ms": median_ms(lambda: list(int8_plain_slices(x, s_x, w_q, s_w, s, pads, dtype)),
                               reps=2, warmup=1),
         "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
     }
-    if gemm:
+    if route == "gemm":
         x2, w2 = quantize(x, s_x).reshape(-1, c), w_q.reshape(o, c).t()
         row["library_ms"] = median_ms(lambda: torch._int_mm(x2, w2))
         row["library"] = "torch._int_mm on the quantized x (int32 sums, no dequantize)"
         del x2
     del x
     torch.cuda.empty_cache()
-    if not gemm:
+    if route != "gemm":
         g = torch.Generator(device=dev).manual_seed(seed)
         xb = torch.randn((n, c, h, w), generator=g, device=dev).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            dtype).contiguous(memory_format=torch.channels_last)
         wb = torch.randn((o, c, k, k), generator=g, device=dev).to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        row["cudnn_bf16_ms"] = median_ms(lambda: F.conv2d(xb, wb, stride=s, padding=k // 2))
+            dtype).contiguous(memory_format=torch.channels_last)
+        key = "cudnn_bf16_ms" if dtype == torch.bfloat16 else "cudnn_float32_ms"
+        row[key] = median_ms(lambda: F.conv2d(xb, wb, stride=s, padding=k // 2))
         del xb, wb
         torch.cuda.empty_cache()
     log(row)
     return row
 
 
-def int8_kernel_checks(dev) -> dict:
-    """Phase 12's kernel rows: the edge shapes, the five k×k shapes on the
-    conv kernel and the three 1×1 shapes on the GEMM kernel."""
+def int8_kernel_checks(dev, launches: dict) -> dict:
+    """Phase 12's kernel rows: the edge shapes (the path ``int8_edges``),
+    the five k×k shapes on the 3×3 kernel, the three 1×1 shapes on the GEMM
+    kernel and the float32 shape on the conv kernel."""
     t0 = time.perf_counter()
-    check_int8_edges(dev)
+    counted("int8_edges", launches, lambda: check_int8_edges(dev))
+    shapes = {**INT8_SHAPES, **INT8_MM_SHAPES, **INT8_CONV_SHAPES}
     rows = {name: check_int8(dev, name, shape, 40 + i)
-            for i, (name, shape) in enumerate({**INT8_SHAPES, **INT8_MM_SHAPES}.items())}
+            for i, (name, shape) in enumerate(shapes.items())}
     log({"phase": "int8_kernel_checks_done", "seconds": time.perf_counter() - t0})
     return rows
 
@@ -4251,7 +4304,7 @@ def int8_features(dev, bf16, int8, frames: np.ndarray, count: int = 32) -> dict:
 def int8_profile(predictor, frames: np.ndarray, chunks: int = 2) -> dict:
     """Device ms a chunk program of an engine by op (torch.profiler's device
     time under each op of ``INT8_PROFILE_OPS``: the int8 op, the abs-max and
-    the scale's product and clamp), its busy ms, the two int8 kernels' own
+    the scale's product and clamp), its busy ms, the three int8 kernels' own
     ms, the calls of each op of ``INT8_PASS_OPS`` and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -4268,12 +4321,14 @@ def int8_profile(predictor, frames: np.ndarray, chunks: int = 2) -> dict:
              if e.key in INT8_PROFILE_OPS}
     kernel_ms = {route: sum(e.self_device_time_total for e in prof.key_averages()
                             if name in e.key) / 1e3 / chunks
-                 for route, name in (("conv", "int8_kernel<"), ("gemm", "int8_gemm_kernel<"))}
+                 for route, name in (("conv", "int8_kernel<"), ("gemm", "int8_gemm_kernel<"),
+                                     ("conv3x3", "int8_conv3x3_kernel<"))}
     calls = {e.key: e.count // chunks for e in prof.key_averages() if e.key in INT8_PASS_OPS}
     return {"tta": predictor.tta, "wall_ms_per_chunk": wall_ms,
             "device_busy_ms_per_chunk": busy_ms, "kernel_sum_ms_per_chunk": summed_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "int8_conv_kernel_ms_per_chunk": kernel_ms["conv"],
+            "int8_conv3x3_kernel_ms_per_chunk": kernel_ms["conv3x3"],
             "int8_gemm_kernel_ms_per_chunk": kernel_ms["gemm"], "device_ms_by_op": by_op,
             "pass_op_calls_per_chunk": {op: calls.get(op, 0) for op in INT8_PASS_OPS},
             "top": top}
@@ -4310,8 +4365,8 @@ def int8_flagship(dev, card: str, weights, frames: np.ndarray, raw_bf16: np.ndar
                   launches: dict) -> dict:
     """The flagship int8 engine (bf16, chunk 128, feature carry) over the
     inference phase's video: the main path TTA on with the launch counters
-    at 0 (5 conv-kernel and 36 GEMM-kernel launches an encoder call: 3 chunk
-    programs and the bootstrap), the 41 layers of a TTA-off chunk held
+    at 0 (5 launches of the 3×3 kernel, 36 of the GEMM kernel and none of
+    the conv kernel an encoder call: 3 chunk programs and the bootstrap), the 41 layers of a TTA-off chunk held
     against the plain version, the drift from bf16 (the sigmoids within
     JAX's bound; the encoder features equal to the plain version's, their
     correlation with bf16 logged), device and end-to-end fps against bf16
@@ -4333,10 +4388,11 @@ def int8_flagship(dev, card: str, weights, frames: np.ndarray, raw_bf16: np.ndar
     check_outputs("int8 main path", idx, raw, expected)
     got = launches["int8_inference"]
     calls = CHUNKS + 1  # the chunk programs and the bootstrap
-    if (got["int8_conv"] != INT8_K_CONVS * calls or got["int8_gemm"] != INT8_MM_CONVS * calls
+    if (got["int8_conv3x3"] != INT8_K_CONVS * calls or got["int8_conv"] != 0
+            or got["int8_gemm"] != INT8_MM_CONVS * calls
             or got["gem"] != CHUNKS or got["dwconv3d"] != CHUNKS * DW_PER_CHUNK):
-        fail(f"the int8 main path launched {got}, expected {INT8_K_CONVS * calls} int8 convs, "
-             f"{INT8_MM_CONVS * calls} int8 GEMMs, {CHUNKS} GeM, "
+        fail(f"the int8 main path launched {got}, expected {INT8_K_CONVS * calls} int8 3×3 "
+             f"convs and no other int8 conv, {INT8_MM_CONVS * calls} int8 GEMMs, {CHUNKS} GeM, "
              f"{CHUNKS * DW_PER_CHUNK} dwconv3d")
     drift = agree("int8_vs_bf16_tta_on", raw, raw_bf16, INT8_DRIFT)
     out = {"card": card, "drift_vs_bf16_tta_on": drift,
@@ -4369,9 +4425,9 @@ def int8_flagship(dev, card: str, weights, frames: np.ndarray, raw_bf16: np.ndar
         if not tta:  # the GEMM kernel's time a chunk against its summed bound
             gemm = {"check": "int8_gemm_chunk", "card": card, "tta": "off",
                     "gemm_kernel_ms_per_chunk": prof["int8_gemm_kernel_ms_per_chunk"],
+                    "conv3x3_kernel_ms_per_chunk": prof["int8_conv3x3_kernel_ms_per_chunk"],
                     **int8_gemm_chunk_bound(pair["int8"], frames),
-                    "build_seconds": {k.name: k.build_seconds
-                                      for k in (int8_ops.KERNEL, int8_ops.GEMM_KERNEL)}}
+                    "build_seconds": {k.name: k.build_seconds for k in INT8_ROUTES.values()}}
             if gemm["gemm_convs_per_chunk"] != INT8_MM_CONVS:
                 fail(f"a TTA-off int8 chunk handed the GEMM kernel {gemm['gemm_convs_per_chunk']} "
                      f"convs, expected {INT8_MM_CONVS}")
@@ -4482,17 +4538,19 @@ def int8_engines(dev, card: str, weights, frames: np.ndarray, launches: dict) ->
     on = launches_on()
     out["data_parallel_vs_one"] = agree("int8_data_parallel_vs_one_device", raw_grid, raw_one,
                                         INT8_PATHS_ATOL)
-    if any(on[k].get(str(d), 0) < 1 for d in cards for k in ("int8_conv", "int8_gemm")):
-        fail(f"the int8 data-share grid did not launch both kernels on every card: {on}")
+    if any(on[k].get(str(d), 0) < 1 for d in cards for k in ("int8_conv3x3", "int8_gemm")):
+        fail(f"the int8 data-share grid did not launch the 3×3 and GEMM kernels on every card: "
+             f"{on}")
     out["data_parallel_launches_on"] = on
     del one, grid
     torch.cuda.empty_cache()
     for path in ("int8_streaming", "int8_serve_device", "int8_sp_1x2", "int8_export",
                  "int8_data_parallel"):
         counts = launches[path]
-        if counts["int8_conv"] < 1 or counts["int8_gemm"] < 1 \
+        if counts["int8_conv3x3"] < 1 or counts["int8_gemm"] < 1 \
                 or counts["gem"] + counts["gem_partial"] < 1 or counts["dwconv3d"] < 1:
-            fail(f"{path} did not launch the int8 kernels, GeM and dwconv3d: {counts}")
+            fail(f"{path} did not launch the int8 3×3 and GEMM kernels, GeM and dwconv3d: "
+                 f"{counts}")
     log({"phase": "int8_engines", **out})
     return out
 
@@ -4503,7 +4561,7 @@ def int8_phase(dev, card: str, weights, video: np.ndarray, raw_bf16: np.ndarray)
     launches and the kernel rows."""
     t0 = time.perf_counter()
     launches: dict = {}
-    rows = int8_kernel_checks(dev)
+    rows = int8_kernel_checks(dev, launches)
     torch.cuda.empty_cache()
     flagship_out = int8_flagship(dev, card, weights, video, raw_bf16, launches)
     engines_out = int8_engines(dev, card, weights, video, launches)
@@ -4513,19 +4571,25 @@ def int8_phase(dev, card: str, weights, video: np.ndarray, raw_bf16: np.ndarray)
 
 
 def int8_sources(launches: dict) -> dict:
-    """The kernels line's phase-12 rows: the conv kernel at the five k×k
+    """The kernels line's phase-12 rows: the 3×3 kernel at the five k×k
     shapes and the GEMM kernel at the three 1×1 shapes, each launched on the
-    int8 main path and every int8 engine's path. They replace no Pallas
-    kernel: the JAX package leaves the s8 product to XLA's convolution
+    int8 main path and every int8 engine's path; the conv kernel, which no
+    flagship path launches any more, at its float32 shape with the edge
+    cases' path, the one that launches it. They replace no Pallas kernel:
+    the JAX package leaves the s8 product to XLA's convolution
     (``models/quantize.py:92``)."""
     paths = {"int8_inference": launches["int8_inference"],
              **{k: v for k, v in launches.items() if k.startswith("int8_")
-                and k != "int8_inference"}}
+                and k not in ("int8_inference", "int8_edges")}}
     src = "ball_action_spotting_torch/csrc/"
     replaces = "ball_action_spotting_tpu/models/quantize.py:92"
-    return {**{name: ("int8_conv", src + "int8_conv.cu", replaces, paths) for name in INT8_SHAPES},
+    edges = {"int8_edges": launches["int8_edges"]}
+    return {**{name: ("int8_conv3x3", src + "int8_conv3x3.cu", replaces, paths)
+               for name in INT8_SHAPES},
             **{name: ("int8_gemm", src + "int8_gemm.cu", replaces, paths)
-               for name in INT8_MM_SHAPES}}
+               for name in INT8_MM_SHAPES},
+            **{name: ("int8_conv", src + "int8_conv.cu", replaces, edges)
+               for name in INT8_CONV_SHAPES}}
 
 
 def device_line() -> dict:
@@ -4552,7 +4616,7 @@ def kernels_line(sources: dict, rows: dict) -> list:
             "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
-            **({"cudnn_bf16_ms": row["cudnn_bf16_ms"]} if "cudnn_bf16_ms" in row else {}),
+            **{key: value for key, value in row.items() if key.startswith("cudnn_")},
         })
     if any(not (math.isfinite(k["ms"]) and math.isfinite(k["device_ms"])) for k in kernels):
         fail("a kernel time is not finite")

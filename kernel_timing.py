@@ -7,6 +7,8 @@ version of their source, on one NVIDIA GPU, at the main paths' shapes.
     python3 kernel_timing.py --kernel gem --other build/gem_parent.cu --other-abi noroot
     git show 1c8d266:ball_action_spotting_torch/csrc/int8_conv.cu > build/int8_conv_int8x.cu
     python3 kernel_timing.py --kernel int8_conv --other build/int8_conv_int8x.cu --other-abi int8x
+    git show 630396a:ball_action_spotting_torch/csrc/int8_conv.cu > build/int8_conv_pr16.cu
+    python3 kernel_timing.py --kernel int8_conv --other build/int8_conv_pr16.cu
     git show 2051477:ball_action_spotting_torch/csrc/int8_conv.cu > build/int8_gemm_pr16.cu
     python3 kernel_timing.py --kernel int8_gemm --other build/int8_gemm_pr16.cu
 
@@ -27,11 +29,22 @@ Prints the card's ``nvidia-smi`` name and power limit first, then one JSON
 line per shape with each version's two medians and the bound.
 ``--sass DIR`` also writes ``cuobjdump -sass`` of each built library there.
 
-``--kernel int8_conv`` times what a quantized conv costs on the card, on a
-seeded bf16 x with s_x from ``activation_scale`` (``chip_smoke.py``'s
-``INT8_SHAPES``, the five k×k convs of a TTA-on chunk, and
-``INT8_MM_SHAPES``, three 1×1 convs): the repo's op, one launch of the conv
-or the GEMM kernel (``new``), against an int8-input source
+``--kernel int8_conv`` (``--other-abi current``) times the 3×3 kernel
+(``csrc/int8_conv3x3.cu``) against another source exporting
+``int8_conv_forward`` with the C interface of ``csrc/int8_conv.cu`` (the
+k×k conv kernel before the 3×3 one took the flagship's shapes), at
+``INT8_SHAPES`` on a seeded bf16 x with s_x from ``activation_scale``: each
+version's int32 sums and bf16 output held exactly against the plain
+version, then one launch of each timed in turns A B B A, each turn the
+median of 10 launches by CUDA events behind a sleeping kernel
+(``chip_smoke.device_ms_events``), and cuDNN's bf16 conv of the same shape
+beside them (``chip_smoke.median_ms``, as ``chip_smoke.py``'s
+``cudnn_bf16_ms``). With ``--other-abi int8x`` it times what a quantized
+conv costs on the card, on a seeded bf16 x with s_x from
+``activation_scale`` (``chip_smoke.py``'s ``INT8_SHAPES``, the five k×k
+convs of a TTA-on chunk, and ``INT8_MM_SHAPES``, three 1×1 convs): the
+repo's op, one launch of the 3×3 or the GEMM kernel (``new``), against an
+int8-input source
 (``--other-abi int8x``: the C interface of the kernel before it quantized
 its input, which took int8 x and a float32 (O,) scale and dequantized in
 its epilogue) behind the quantize pass (``quantize``, five PyTorch kernels;
@@ -65,6 +78,7 @@ import sys
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from ball_action_spotting_torch.ops import gem as gem_ops
 from ball_action_spotting_torch.ops import int8_conv as int8_ops
@@ -241,6 +255,51 @@ def int8_main(other: CudaKernel, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def int8_conv_main(kernels: dict, card: str) -> None:
+    """``--kernel int8_conv --other-abi current`` (module docstring): one
+    JSON line a shape."""
+    dev = torch.device("cuda", 0)
+    own, other = kernels.values()
+    for i, (label, shape) in enumerate(INT8_SHAPES.items()):
+        n, h, w, c, o, k, s = shape
+        x, s_x, w_q, s_w, pads = int8_inputs(dev, shape, 40 + i)
+        ho, wo = -(-h // s), -(-w // s)
+        outs = {code: torch.empty((n, ho, wo, o), dtype=dtype, device=dev)
+                for code, dtype in ((1, torch.bfloat16), (3, torch.int32))}
+
+        def call(kernel, code=1):
+            geometry = (n, h, w, c, o, s) if kernel is own else (n, h, w, c, o, k, s)
+            kernel.launch(x.data_ptr(), s_x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(),
+                          outs[code].data_ptr(), *geometry, pads[0], pads[2], ho, wo, 1, code,
+                          stream_handle(x))
+            return outs[code]
+
+        row = {"case": label, "shape": list(shape), "dtype": "bfloat16", "card": card}
+        for name, kernel in kernels.items():
+            for code in (3, 1):
+                int8_exact(f"{label} {name} out_code {code}", call(kernel, code), x, s_x, w_q,
+                           s_w, s, pads)
+            row[f"{name}_max_abs_diff"] = 0.0
+        names = list(kernels)
+        times: dict[str, list[float]] = {name: [] for name in names}
+        for name in names + names[::-1]:
+            times[name].append(device_ms_events(lambda: call(kernels[name]), kernels[name]))
+        row["ms"] = times
+        nbytes = x.numel() * 2 + w_q.numel() + n * ho * wo * o * 2 + o * 4 + 4
+        row["bound_ms"], row["bound_by"] = bound_int8(nbytes, 2 * n * ho * wo * o * k * k * c)
+        del x, outs
+        torch.cuda.empty_cache()
+        g = torch.Generator(device=dev).manual_seed(40 + i)
+        xb = torch.randn((n, c, h, w), generator=g, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wb = torch.randn((o, c, k, k), generator=g, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        row["cudnn_bf16_ms"] = median_ms(lambda: F.conv2d(xb, wb, stride=s, padding=k // 2))
+        print(json.dumps(row), flush=True)
+        del xb, wb
+        torch.cuda.empty_cache()
+
+
 def int8_gemm_main(kernels: dict, card: str) -> None:
     """``--kernel int8_gemm`` (module docstring): one JSON line a shape."""
     dev = torch.device("cuda", 0)
@@ -306,13 +365,12 @@ def main() -> int:
            "int8_gemm": int8_ops.GEMM_KERNEL}[args.kernel]
     if args.other_abi != "current" and args.kernel not in OLD_SIGNATURES[args.other_abi]:
         parser.error(f"--other-abi {args.other_abi} does not apply to {args.kernel}")
-    if args.kernel == "int8_conv" and args.other_abi != "int8x":
-        parser.error("--kernel int8_conv times an int8-input source: --other-abi int8x")
     signature = (own.signature if args.other_abi == "current"
                  else OLD_SIGNATURES[args.other_abi][args.kernel])
-    kernels = {"kernel": own,
-               args.other.name: SourceKernel(args.other, f"{args.kernel}_other", own.entry,
-                                             signature)}
+    other = SourceKernel(args.other, f"{args.kernel}_other", own.entry, signature)
+    if args.kernel == "int8_conv" and args.other_abi == "current":
+        own = int8_ops.CONV3X3_KERNEL  # timed against the other int8_conv_forward
+    kernels = {"kernel": own, args.other.name: other}
     abis = {"kernel": "current", args.other.name: args.other_abi}
     logs = build_all(list(kernels.values()))
     for name, text in logs.items():
@@ -322,6 +380,9 @@ def main() -> int:
     if args.sass:
         write_sass(kernels, args.sass)
 
+    if args.kernel == "int8_conv" and args.other_abi == "current":
+        int8_conv_main(kernels, card)
+        return 0
     if args.kernel == "int8_conv":
         int8_main(kernels[args.other.name], card)
         return 0

@@ -8,7 +8,8 @@ Every check of the phase holds: the s8 route against its plain version, the
 int8 main path's launches, the hooked layers, the drift and correlation
 bounds, the 1×1 convs of a chunk recorded at the op for the GEMM line, the
 other engines against their counterparts with their launches; the kernels
-line's phase-12 rows build from its launches."""
+line's phase-12 rows build from its launches (the 3×3, GEMM and conv
+kernels' rows, the last with the edge cases' path)."""
 
 import numpy as np
 import torch
@@ -26,17 +27,18 @@ def count_plain_versions_on(monkeypatch):
     """A launch per call of each op's plain version, under its input's
     device: the ops' CPU implementations call them, so that the exported
     program's calls count too. GeM's band-partial sums count under
-    ``launches_by["partial"]``; the int8 op's count as a launch of the conv
-    or the GEMM kernel, by the route its shape takes on the card."""
+    ``launches_by["partial"]``; the int8 op's count as a launch of the conv,
+    the GEMM or the 3×3 kernel, by the route its shape takes on the card."""
+    routes = {"gemm": int8_ops.GEMM_KERNEL, "conv3x3": int8_ops.CONV3X3_KERNEL}
 
     def counting(module, attr, kernel, tag=None):
         original = getattr(module, attr)
 
         def call(*args):
             t = tag(*args) if tag else "kernel"
-            k = int8_ops.GEMM_KERNEL if t == "gemm" else kernel
+            k = routes.get(t, kernel)
             k.launches += 1
-            if t not in ("kernel", "conv", "gemm"):
+            if t not in ("kernel", "conv", "gemm", "conv3x3"):
                 k.launches_by[t] = k.launches_by.get(t, 0) + 1
             device = str(args[0].device)
             k.launches_on[device] = k.launches_on.get(device, 0) + 1
@@ -48,10 +50,12 @@ def count_plain_versions_on(monkeypatch):
     counting(gem_ops, "gem_pool_partial_reference", gem_ops.KERNEL, lambda *a: gem_ops.PARTIAL)
     counting(dw_ops, "dwconv3d_reference", dw_ops.KERNEL)
     counting(int8_ops, "int8_conv2d_reference", int8_ops.KERNEL, lambda x, s_x, w_q, s_w, s, *a: (
-        "gemm" if int8_ops.gemm_takes(x, w_q, s, a[:4]) else "conv"))
+        "gemm" if int8_ops.gemm_takes(x, w_q, s, a[:4])
+        else "conv3x3" if int8_ops.conv3x3_takes(x, w_q, s) else "conv"))
     # the kernels' own wrappers, which the kernel rows call directly
-    monkeypatch.setattr(int8_ops, "int8_conv_cuda", lambda x, s_x, w_q, s_w, s, pads, dtype:
-                        int8_ops.int8_conv2d_reference(x, s_x, w_q, s_w, s, *pads, dtype))
+    for wrapper in ("int8_conv_cuda", "int8_conv3x3_cuda"):
+        monkeypatch.setattr(int8_ops, wrapper, lambda x, s_x, w_q, s_w, s, pads, dtype:
+                            int8_ops.int8_conv2d_reference(x, s_x, w_q, s_w, s, *pads, dtype))
     monkeypatch.setattr(int8_ops, "int8_gemm_cuda", lambda x, s_x, w_q, s_w, dtype:
                         int8_ops.int8_conv2d_reference(x, s_x, w_q, s_w, 1, 0, 0, 0, 0, dtype))
 
@@ -66,7 +70,7 @@ def test_chip_smoke_phase12_rehearsal_on_the_cpu(monkeypatch):
         monkeypatch.setattr(chip_smoke, timer, lambda fn, *a, **kw: 0.0)
     monkeypatch.setattr(chip_smoke, "int8_profile", lambda *a: {  # the card's profile only
         "pass_op_calls_per_chunk": dict.fromkeys(chip_smoke.INT8_PASS_OPS, 0),
-        "int8_gemm_kernel_ms_per_chunk": 0.0})
+        "int8_gemm_kernel_ms_per_chunk": 0.0, "int8_conv3x3_kernel_ms_per_chunk": 0.0})
     init = streaming.PredictorBase.__init__
 
     def kernel_by_default(self, *args, dw3d_use_kernel=None, dtype=torch.float32, **kwargs):
@@ -81,6 +85,7 @@ def test_chip_smoke_phase12_rehearsal_on_the_cpu(monkeypatch):
     small = {"int8_conv_small": (2, 12, 20, 16, 24, 3, 2)}
     for name, value in dict(CHUNK=8, INT8_K_CONVS=3, INT8_MM_CONVS=6, INT8_SHAPES=small,
                             INT8_MM_SHAPES={"int8_gemm_small": (2, 6, 8, 32, 16, 1, 1)},
+                            INT8_CONV_SHAPES={"int8_conv_f32_small": (2, 9, 11, 32, 24, 3, 2)},
                             INT8_SLICE=1, INT8_STREAM_FRAMES=46,
                             DW_PER_CHUNK=nn_kwargs["num_3d_blocks"]).items():
         monkeypatch.setattr(chip_smoke, name, value)
@@ -101,14 +106,19 @@ def test_chip_smoke_phase12_rehearsal_on_the_cpu(monkeypatch):
                                                raw_bf16)
     finally:
         torch.set_num_threads(threads)
-    assert sorted(rows) == ["int8_conv_small", "int8_gemm_small"]
-    assert sorted(launches) == ["int8_data_parallel", "int8_export", "int8_inference",
-                                "int8_serve_device", "int8_sp_1x2", "int8_streaming"]
-    main = launches["int8_inference"]
-    assert main["int8_conv"] == 3 * 4 and main["int8_gemm"] == 6 * 4  # 3 chunks + the bootstrap
+    assert sorted(rows) == ["int8_conv_f32_small", "int8_conv_small", "int8_gemm_small"]
+    assert sorted(launches) == ["int8_data_parallel", "int8_edges", "int8_export",
+                                "int8_inference", "int8_serve_device", "int8_sp_1x2",
+                                "int8_streaming"]
+    main = launches["int8_inference"]  # 3 chunks + the bootstrap
+    assert main["int8_conv3x3"] == 3 * 4 and main["int8_gemm"] == 6 * 4 and main["int8_conv"] == 0
     kernels = chip_smoke.kernels_line(chip_smoke.int8_sources(launches), rows)
-    assert [k["name"] for k in kernels] == ["int8_conv_small", "int8_gemm_small"]
+    assert [k["name"] for k in kernels] == ["int8_conv_small", "int8_gemm_small",
+                                            "int8_conv_f32_small"]
     assert kernels[0]["launches"] == 12 and kernels[0]["library_ms"] is None
     assert "cudnn_bf16_ms" in kernels[0] and len(kernels[0]["launches_by_path"]) == 6
+    assert kernels[0]["source"].endswith("csrc/int8_conv3x3.cu")
     assert kernels[1]["launches"] == 24 and kernels[1]["library_ms"] == 0.0
     assert len(kernels[1]["launches_by_path"]) == 6
+    assert kernels[2]["source"].endswith("csrc/int8_conv.cu") and "cudnn_float32_ms" in kernels[2]
+    assert list(kernels[2]["launches_by_path"]) == ["int8_edges"] and kernels[2]["launches"] > 0

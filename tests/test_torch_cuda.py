@@ -24,6 +24,7 @@ from ball_action_spotting_torch.ops.dwconv3d import KERNEL as DW_KERNEL
 from ball_action_spotting_torch.ops.dwconv3d import dwconv3d, dwconv3d_reference
 from ball_action_spotting_torch.ops.gem import KERNEL as GEM_KERNEL
 from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_reference
+from ball_action_spotting_torch.ops.int8_conv import CONV3X3_KERNEL as INT8_CONV3X3_KERNEL
 from ball_action_spotting_torch.ops.int8_conv import GEMM_KERNEL as INT8_GEMM_KERNEL
 from ball_action_spotting_torch.ops.int8_conv import KERNEL as INT8_KERNEL
 from ball_action_spotting_torch.ops.int8_conv import int8_conv2d, int8_conv2d_reference
@@ -172,17 +173,18 @@ def test_dwconv3d_route_shapes(cuda, shape, dtype, layout, launches):
 @pytest.mark.parametrize("shape,dtype,offset,route", INT8_EDGE_CASES,
                          ids=lambda case: str(case))
 def test_int8_conv_edge_shapes(cuda, shape, dtype, offset, route):
-    """The int8 conv's CUDA route (the conv kernel, or the GEMM kernel for a
-    1×1 it takes) on a ``dtype`` x against the plain version, exactly, in
-    int32 and ``dtype``."""
+    """The int8 conv's CUDA route (the GEMM kernel for a 1×1 it takes, the
+    3×3 kernel for a 3×3 it takes, else the conv kernel) on a ``dtype`` x
+    against the plain version, exactly, in int32 and ``dtype``."""
     x, s_x, w_q, s_w, pads = int8_inputs(cuda, shape, 7, dtype, offset)
+    kernels = {"conv": INT8_KERNEL, "gemm": INT8_GEMM_KERNEL, "conv3x3": INT8_CONV3X3_KERNEL}
     for out_dtype in (dtype, torch.int32):
-        INT8_KERNEL.reset_counts()
-        INT8_GEMM_KERNEL.reset_counts()
+        for kernel in kernels.values():
+            kernel.reset_counts()
         out = int8_conv2d(x, s_x, w_q, s_w, shape[-1], pads, out_dtype)
         torch.cuda.synchronize()
-        assert (INT8_KERNEL.launches, INT8_GEMM_KERNEL.launches) == (
-            (1, 0) if route == "conv" else (0, 1))
+        assert {name: k.launches for name, k in kernels.items()} == {
+            name: int(name == route) for name in kernels}
         ref = int8_conv2d_reference(x, s_x, w_q, s_w, shape[-1], *pads, out_dtype)
         assert torch.equal(out, ref)
 
@@ -203,6 +205,8 @@ def test_custom_ops_launch_the_kernels(cuda):
         (WARP_KERNEL, torch.ops.bas_torch.warp_resample,
          (img, torch.ones(2, device=cuda), torch.zeros(2, 5, device=cuda), 4, "highest", 2)),
         (INT8_KERNEL, torch.ops.bas_torch.int8_conv2d,
+         (*int8_inputs(cuda, (2, 9, 11, 16, 20, 3, 2), 1)[:4], 2, 0, 1, 1, 1, torch.bfloat16)),
+        (INT8_CONV3X3_KERNEL, torch.ops.bas_torch.int8_conv2d,
          (*int8_inputs(cuda, (2, 9, 11, 16, 24, 3, 2), 1)[:4], 2, 0, 1, 1, 1, torch.bfloat16)),
         (INT8_GEMM_KERNEL, torch.ops.bas_torch.int8_conv2d,
          (*int8_inputs(cuda, (2, 9, 11, 16, 24, 1, 1), 2)[:4], 1, 0, 0, 0, 0, torch.bfloat16)),

@@ -131,12 +131,13 @@ def test_launch_counters_stay_zero_on_cpu():
     gem_pool(torch.rand(2, 3, 4, 8), torch.full((1,), 3.0))
     dwconv3d(torch.rand(1, 2, 3, 4, 8), torch.rand(3, 3, 3, 1, 8))
     resample_last_axis(torch.rand(2, 3, 8), torch.ones(2), torch.zeros(2, 3))
-    for k in (3, 1):  # the conv kernel's shape and the GEMM kernel's
+    for k, o in ((3, 8), (1, 8), (3, 12)):  # the 3×3, GEMM and conv kernels' shapes
         int8_conv2d(torch.ones(1, 5, 4, 16), torch.tensor(1.0),
-                    torch.ones(8, k, k, 16, dtype=torch.int8), torch.ones(8), 1,
+                    torch.ones(o, k, k, 16, dtype=torch.int8), torch.ones(o), 1,
                     (k // 2,) * 4, torch.float32)
-    assert [k.name for k in KERNELS] == ["gem", "dwconv3d", "warp", "int8_conv", "int8_gemm"]
-    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0]
+    assert [k.name for k in KERNELS] == ["gem", "dwconv3d", "warp", "int8_conv", "int8_gemm",
+                                         "int8_conv3x3"]
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0, 0]
 
 
 # csrc/dwconv3d.cu stages three rows of 3 slots × W × 32 channel pairs in at
@@ -200,5 +201,5 @@ def test_cpu_wrappers_count_no_launch(case):
     else:
         img = torch.rand(2, 8, 3, generator=g).transpose(1, 2)
         assert resample_columns(img, torch.ones(2), torch.zeros(2, 8)).shape == (2, 3, 8)
-    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0]
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0, 0]
     assert all(not k.launches_by for k in KERNELS)

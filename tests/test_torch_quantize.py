@@ -54,6 +54,8 @@ from ball_action_spotting_torch.models.quantize import (
 )
 from ball_action_spotting_torch.ops import int8_conv as int8_ops
 from ball_action_spotting_torch.ops.int8_conv import (
+    conv3x3_plan,
+    conv3x3_takes,
     dequantize,
     gemm_takes,
     int8_conv2d,
@@ -206,6 +208,147 @@ def test_gemm_route_needs_rows_tma_reads(dtype, c, offset, takes):
     x = flat[offset:].view(2, 23, 40, c)
     w_q = torch.zeros((24, 1, 1, c), dtype=torch.int8)
     assert gemm_takes(x, w_q, 1, (0, 0, 0, 0)) is takes
+
+
+@pytest.mark.parametrize("shape,k,o,stride,takes", [
+    ((2, 23, 40, 32), 3, 16, 1, True),     # blocks_0_0.conv: C 32 → 16
+    ((2, 23, 40, 16), 3, 64, 2, True),     # blocks_1_0.conv_exp: stride 2, two taps a k32 step
+    ((2, 23, 40, 48), 3, 192, 1, True),    # blocks_2_1.conv_exp: a step across two taps
+    ((2, 23, 40, 8), 3, 8, 1, True),       # C 8: the unit's tail is TMA's zero fill
+    ((2, 23, 40, 64), 3, 64, 1, False),    # C past 48
+    ((2, 23, 40, 32), 3, 20, 1, False),    # O not a multiple of 8
+    ((2, 23, 40, 32), 3, 200, 1, False),   # O past 192
+    ((2, 23, 40, 32), 5, 32, 2, False),    # k 5
+    ((2, 23, 40, 32), 1, 32, 2, False),    # 1×1 at stride 2
+    ((2, 23, 40, 32), 3, 32, 3, False),    # stride 3
+    ((2, 23, 40, 48), 3, 64, 2, False),    # no two ring stages fit
+])
+def test_conv3x3_route_predicate(shape, k, o, stride, takes):
+    """The 3×3 kernel takes a 3×3 conv at stride 1 or 2 with C at most 48,
+    O a multiple of 8 up to 192 and two ring stages that fit; the conv
+    kernel the rest."""
+    w_q = torch.zeros((o, k, k, shape[-1]), dtype=torch.int8)
+    assert conv3x3_takes(torch.zeros(shape, dtype=torch.bfloat16), w_q, stride) is takes
+
+
+@pytest.mark.parametrize("dtype,c,offset,takes", [
+    (torch.bfloat16, 16, 0, True),
+    (torch.bfloat16, 12, 0, False),   # rows of 24 bytes: not a multiple of 16
+    (torch.bfloat16, 16, 1, False),   # x 2 bytes past a 16-byte boundary
+    (torch.float32, 12, 0, True),     # rows of 48 bytes
+    (torch.float32, 12, 2, False),    # x 8 bytes past a 16-byte boundary
+    (torch.float16, 8, 0, True),      # rows of 16 bytes
+])
+def test_conv3x3_route_needs_rows_tma_reads(dtype, c, offset, takes):
+    """x goes to the 3×3 kernel only where TMA can read its rows: 16-byte
+    aligned, a multiple of 16 bytes long."""
+    flat = torch.zeros(offset + 2 * 23 * 40 * c, dtype=dtype)
+    x = flat[offset:].view(2, 23, 40, c)
+    w_q = torch.zeros((16, 3, 3, c), dtype=torch.int8)
+    assert conv3x3_takes(x, w_q, 1) is takes
+
+
+@pytest.mark.parametrize("c,o,stride,esize,plan", [
+    (32, 16, 1, 2, (3, 4, 2)),    # the flagship's five k×k convs in bf16
+    (16, 64, 2, 2, (2, 2, 4)),
+    (32, 128, 1, 2, (3, 1, 4)),
+    (32, 128, 2, 2, (2, 1, 2)),   # a third consumer's two stages would not fit
+    (48, 192, 1, 2, (2, 1, 3)),
+    (32, 16, 1, 4, (2, 2, 3)),    # float32: nor here
+    (8, 8, 1, 2, (3, 4, 5)),
+    (32, 128, 2, 4, (2, 1, 1)),   # refused: blocks_2_0 in float32
+])
+def test_conv3x3_plan(c, o, stride, esize, plan):
+    """The mirror of csrc/int8_conv3x3.cu's shared-memory plan: consumer
+    warpgroups, m64 blocks a tile and ring stages (the card holds the
+    kernel to it: a shape the predicate gives it and it refuses raises)."""
+    assert conv3x3_plan(c, o, stride, esize) == plan
+
+
+def test_cuda_route_is_gemm_then_conv3x3_then_conv(monkeypatch):
+    """``_int8_conv2d_cuda_route`` asks ``gemm_takes`` first, then
+    ``conv3x3_takes``; the conv kernel takes what both refuse."""
+    taken = []
+    for name in ("int8_gemm_cuda", "int8_conv3x3_cuda", "int8_conv_cuda"):
+        monkeypatch.setattr(int8_ops, name, lambda *a, name=name: taken.append(name))
+    s_x = torch.tensor(1.0)
+    for k, o, c in ((1, 16, 32), (3, 16, 32), (3, 16, 64), (3, 20, 32)):
+        x = torch.zeros((2, 9, 11, c), dtype=torch.bfloat16)
+        w_q = torch.zeros((o, k, k, c), dtype=torch.int8)
+        pads = (*same_pad(9, k, 1), *same_pad(11, k, 1))
+        int8_ops._int8_conv2d_cuda_route(x, s_x, w_q, torch.ones(o), 1, *pads, torch.bfloat16)
+    assert taken == ["int8_gemm_cuda", "int8_conv3x3_cuda", "int8_conv_cuda", "int8_conv_cuda"]
+
+
+def conv3x3_kernel_sums(x_q: np.ndarray, w_q: np.ndarray, stride: int, pads,
+                        blocks: int) -> np.ndarray:
+    """The s32 sums of a 3×3 conv formed as ``csrc/int8_conv3x3.cu`` forms
+    them, in int64 numpy: its resident weights, K-major (row o, 16-byte
+    unit j = tap j // cs, channels 16 (j % cs).., zeros past C and past unit
+    9·cs to an even count: two units a k32 step), and per tile (16 output
+    columns by 4·``blocks`` rows) the int8 input box (zeros outside the image, the
+    SAME padding), each position cs | 1 units apart, from which each
+    pixel's row of A is gathered unit by unit at the kernel's ldmatrix
+    offsets: ``pix`` (the pixel's first unit) plus ``koff`` (the unit's
+    tap, dy rows and dx columns on, and segment)."""
+    n, h, w, c = x_q.shape
+    o = w_q.shape[0]
+    cs = -(-c // 16)
+    pu, units, steps = cs | 1, 9 * cs, (9 * cs + 1) // 2
+    tile_h = 4 * blocks
+    rh, rw = (tile_h - 1) * stride + 3, 15 * stride + 3
+    pt, pb, pl, pr = pads
+    ho, wo = (h + pt + pb - 3) // stride + 1, (w + pl + pr - 3) // stride + 1
+    wt = np.zeros((o, 9, 16 * cs), np.int64)
+    wt[..., :c] = w_q.reshape(o, 9, c)
+    b = np.zeros((o, 2 * steps, 16), np.int64)
+    b[:, :units] = wt.reshape(o, units, 16)
+
+    def koff(j: int) -> int:
+        tap, seg = divmod(j, cs) if j < units else (0, 0)
+        return ((tap // 3) * rw + tap % 3) * pu + seg
+
+    offs = np.array([koff(j) for j in range(2 * steps)])
+    m = np.arange(16 * tile_h)
+    pix = ((m // 16) * rw + m % 16) * stride * pu
+    tiles_y, tiles_x = -(-ho // tile_h), -(-wo // 16)
+    image = np.zeros((n, tiles_y * tile_h * stride + rh, tiles_x * 16 * stride + rw, 16 * cs),
+                     np.int64)
+    image[:, pt:pt + h, pl:pl + w, :c] = x_q
+    sums = np.zeros((n, tiles_y * tile_h, tiles_x * 16, o), np.int64)
+    for ty in range(tiles_y):
+        for tx in range(tiles_x):
+            y0, x0 = ty * tile_h * stride, tx * 16 * stride
+            box = image[:, y0:y0 + rh, x0:x0 + rw].reshape(n, rh * rw, cs, 16)
+            q = np.zeros((n, rh * rw, pu, 16), np.int64)
+            q[:, :, :cs] = box
+            a = q.reshape(n, rh * rw * pu, 16)[:, pix[:, None] + offs[None, :]]
+            tile = np.einsum("nmju,oju->nmo", a, b).reshape(n, tile_h, 16, o)
+            sums[:, ty * tile_h:(ty + 1) * tile_h, tx * 16:(tx + 1) * 16] = tile
+    return sums[:, :ho, :wo]
+
+
+@pytest.mark.parametrize("c,o,stride,h,w", [
+    (16, 16, 1, 9, 21),    # two taps a k32 step, two m64 blocks, ragged tiles
+    (16, 64, 2, 11, 13),   # stride 2 at odd H and W: the extra SAME row and column
+    (32, 128, 1, 7, 18),   # one tap a step, one m64 block
+    (32, 16, 2, 9, 35),
+    (48, 192, 1, 6, 17),   # a step across two taps
+    (48, 64, 2, 9, 11),
+    (24, 40, 1, 5, 9),     # a unit's tail past C
+])
+def test_conv3x3_k_order_gives_the_plain_sums(c, o, stride, h, w):
+    """The 3×3 kernel's K order and addressing (``conv3x3_kernel_sums``, at
+    the tile height of the instance it launches for bfloat16 x) give
+    ``int8_conv2d_sums_reference``'s sums exactly at C 16, 32 and 48,
+    strides 1 and 2, on small images."""
+    rng = np.random.default_rng(c * o + stride)
+    x_q = rng.integers(-127, 128, (2, h, w, c), dtype=np.int8)
+    w_q = rng.integers(-127, 128, (o, 3, 3, c), dtype=np.int8)
+    pads = (*same_pad(h, 3, stride), *same_pad(w, 3, stride))
+    ref = int8_conv2d_sums_reference(torch.from_numpy(x_q), torch.from_numpy(w_q), stride, pads)
+    blocks = conv3x3_plan(c, o, stride, 2)[1]
+    np.testing.assert_array_equal(conv3x3_kernel_sums(x_q, w_q, stride, pads, blocks), ref.numpy())
 
 
 def int8_case(shape: tuple, o: int, k: int, dtype: torch.dtype, seed: int):
