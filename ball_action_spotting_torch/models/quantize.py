@@ -43,6 +43,7 @@ and ``s_w`` theirs, ``ops/int8_conv.py``).
 
 from __future__ import annotations
 
+import contextvars
 import threading
 from typing import Callable, Sequence, TypeVar
 
@@ -207,7 +208,10 @@ def run_shares(calls: Sequence[Callable[[], T]], device: torch.device) -> list[T
         finally:
             _SHARE.member = None
 
-    threads = [threading.Thread(target=work, args=(i,), daemon=True) for i in range(len(calls))]
+    # each thread in a copy of the caller's context, so a share's tracer spans
+    # (``utils/profiling.py``) nest in the caller's
+    threads = [threading.Thread(target=contextvars.copy_context().run, args=(work, i), daemon=True)
+               for i in range(len(calls))]
     for t in threads:
         t.start()
     for t in threads:

@@ -5,7 +5,7 @@ streaming engine.
     python -m ball_action_spotting_torch.predict --experiment NAME \\
         [--folds 0,1] [--challenge] [--use_saved_predictions] \\
         [--engine chunked|streaming] [--data_parallel N] \\
-        [--fused [--fold_parallel N]] [--device cuda]
+        [--fused [--fold_parallel N]] [--device cuda] [--trace_dir DIR]
 
 Reads the best ``.ckpt`` of ``data/ball_action/experiments/NAME/fold_K``
 (the files the JAX training CLI writes) and writes the raw npz and
@@ -14,11 +14,15 @@ challenge}/fold_K``, as the JAX predict CLI does. ``--fused`` (challenge
 only) runs all the folds' models in one pass over each video
 (``predict/fused.py``); ``--data_parallel N`` spreads each chunk over N
 devices, ``--fold_parallel N`` (with ``--fused``) the folds.
+``--trace_dir DIR`` runs the prediction under ``utils/profiling.py::
+device_trace``: a Chrome trace of the run and, beside it, the tracer's
+spans and counters (``predict.*``) as JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 from ball_action_spotting_torch.domains import ball
 from ball_action_spotting_torch.predict.pipeline import (
@@ -27,6 +31,7 @@ from ball_action_spotting_torch.predict.pipeline import (
     predict_games_fused,
 )
 from ball_action_spotting_torch.train.checkpoint import get_best_checkpoint_path
+from ball_action_spotting_torch.utils.profiling import device_trace
 
 RESOLUTION = "720p"
 TTA = True
@@ -49,6 +54,9 @@ def parse_arguments(argv=None):
                         help="with --fused: the folds over N devices (not with "
                              "--data_parallel)")
     parser.add_argument("--device", default="cuda", type=str)
+    parser.add_argument("--trace_dir", default=None, type=str,
+                        help="trace the run into this directory: a Chrome trace and the "
+                             "program's spans and counters (JSON)")
     return parser.parse_args(argv)
 
 
@@ -83,6 +91,11 @@ def predict_challenge_fused(args, folds, domain) -> None:
 
 def main(argv=None) -> None:
     args = parse_arguments(argv)
+    with device_trace(args.trace_dir) if args.trace_dir else contextlib.nullcontext():
+        run(args)
+
+
+def run(args) -> None:
     folds = ball.folds if args.folds == "all" else [int(f) for f in args.folds.split(",")]
     if args.fold_parallel > 1 and not args.fused:
         raise ValueError("--fold_parallel shards the fused engine's folds; add --fused "

@@ -66,6 +66,12 @@ from ball_action_spotting_torch.predict.host_loop import (  # noqa: F401  (re-ex
     run_chunk_loop,
 )
 from ball_action_spotting_torch.train.checkpoint import resolve_pretrain_variables
+from ball_action_spotting_torch.utils import profiling
+
+
+def _device_of(x: torch.Tensor | Bands) -> torch.device:
+    """The device of a tensor, or of the first of its bands."""
+    return x.devices[0] if isinstance(x, Bands) else x.device
 
 
 def _batched(seq, size):
@@ -354,15 +360,28 @@ class ChunkedVideoPredictor(PredictorBase):
             [feats[:, k * span : k * span + n] for k in range(self.num_stacks)], dim=2)
         return windows.reshape((self.num_tta * n,) + windows.shape[2:])
 
+    def encode(self, frames: torch.Tensor | Bands, count: int, model=None):
+        """Stacks [0, count) of (F, H, W) u8 ``frames`` (or their bands) →
+        ``encode_2d``'s features, normalized on the way, in a
+        ``predict.encode`` span timed on the frames' device."""
+        def prep(t):
+            return self.normalize_stacks(self._stacks(t, count))
+
+        with profiling.span("predict.encode", device=_device_of(frames)):
+            x = frames.map(prep) if isinstance(frames, Bands) else prep(frames)
+            return self.encode_2d(x, model)
+
     def head_from_feats(self, feats: torch.Tensor | Bands, model=None) -> torch.Tensor:
         """(tta, n + (S-1)·span, h, w, C) stack features → (n, classes)
         sigmoid predictions; window p's k-th stack is feats[p + k·span].
-        Bands take their windows band by band."""
-        n = feats.shape[1] - self._feat_tail
-        flat = feats.map(self._windows) if isinstance(feats, Bands) else self._windows(feats)
-        logits = (model or self.model).forward_3d_head(flat)
-        preds = torch.sigmoid(logits.float())
-        return preds.reshape(self.num_tta, n, -1).mean(dim=0)
+        Bands take their windows band by band. A ``predict.head`` span,
+        timed on the features' device."""
+        with profiling.span("predict.head", device=_device_of(feats)):
+            n = feats.shape[1] - self._feat_tail
+            flat = feats.map(self._windows) if isinstance(feats, Bands) else self._windows(feats)
+            logits = (model or self.model).forward_3d_head(flat)
+            preds = torch.sigmoid(logits.float())
+            return preds.reshape(self.num_tta, n, -1).mean(dim=0)
 
     @staticmethod
     def _split(count: int, shares: list) -> list:
@@ -386,8 +405,8 @@ class ChunkedVideoPredictor(PredictorBase):
         # source device's stream, behind the work already queued there
         subs = [frames[part.start:part.stop + reach].to(dev) for dev, _, part in work]
         feats = self.run_shares([
-            lambda sub=sub, model=model, count=part.stop - part.start: self.encode_2d(
-                self.normalize_stacks(self._stacks(sub, count)), model)
+            lambda sub=sub, model=model, count=part.stop - part.start: self.encode(
+                sub, count, model)
             for (_, model, part), sub in zip(work, subs)])
         return [(first + part.start, f) for (_, _, part), f in zip(work, feats)]
 
@@ -485,8 +504,7 @@ class ChunkedVideoPredictor(PredictorBase):
         frames = [self._take(pieces, part.start, part.stop + reach, devices, 0)
                   for _, devices, part in rows]
         feats = self.run_shares([
-            lambda f=f, r=r, count=part.stop - part.start: self.encode_2d(
-                f.map(lambda t: self.normalize_stacks(self._stacks(t, count))), shares[r][1])
+            lambda f=f, r=r, count=part.stop - part.start: self.encode(f, count, shares[r][1])
             for (r, _, part), f in zip(rows, frames)])
         parts = [(part.start, feat) for (_, _, part), feat in zip(rows, feats)]
         heads = [(shares[r][1], self._take(parts, part.start, part.stop + tail, devices, 1))
@@ -499,8 +517,7 @@ class ChunkedVideoPredictor(PredictorBase):
     def bootstrap(self, first_frames: torch.Tensor, model=None):
         """First ``overlap`` frames → the initial feature carry (frame tail,
         the features of stacks 0..feat_tail-1)."""
-        x = self.normalize_stacks(self._stacks(first_frames, self._feat_tail))
-        return first_frames[-self._frame_tail:], self.encode_2d(x, model)
+        return first_frames[-self._frame_tail:], self.encode(first_frames, self._feat_tail, model)
 
     # --- host loop -------------------------------------------------------
 

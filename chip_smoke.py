@@ -138,8 +138,8 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    over (4, 3, 736, 1280), one bf16 forward and backward, then the folded
    forward against the unfolded one in float32. GeM and the depthwise conv
    are timed at the multi-channel stacker's shapes.
-9. The host data path, in its own temporary workspace, each stage timed
-   by ``utils/profiling.py::StageTimer``: two ball games of two halves of
+9. The host data path, in its own temporary workspace, each stage a
+   span of ``utils/profiling.py``'s tracer: two ball games of two halves of
    400 frames at 1280x720 written as gray stores (1.47 GB); batches of the
    flagship's clips (15 frames at step 2; 4 and 128 clips, indexes clamped
    at both ends) gathered into padded 736-row slots by the native reader at
@@ -422,11 +422,11 @@ from ball_action_spotting_torch.train.pipeline import (
 )
 from ball_action_spotting_torch.train.state import TrainState
 from ball_action_spotting_torch.train.steps import make_train_step, normalize_frames
+from ball_action_spotting_torch.utils import profiling
 from ball_action_spotting_torch.utils.experiments import (
     load_experiment_config,
     num_decode_workers,
 )
-from ball_action_spotting_torch.utils.profiling import StageTimer, device_trace
 from ball_action_spotting_torch.utils.recipe import spotting_recipe
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
@@ -3146,7 +3146,7 @@ def traced_step(trainer, batch, log_dir: Path) -> None:
     """``TRACE_STEPS`` train steps under ``device_trace``: the trace file
     must exist and name the GeM and warp kernels (the log counts the
     trace's events that name each)."""
-    with device_trace(log_dir) as path:
+    with profiling.device_trace(log_dir) as path:
         for _ in range(TRACE_STEPS):
             trainer.train_step(trainer.state, *batch, 4)
     events = json.loads(path.read_text())["traceEvents"] if path.exists() else []
@@ -3243,34 +3243,40 @@ def rehearsal_on_card(dev, root: Path, sources: list, launches: dict) -> None:
 def host_data_path(dev, card: str, fps_main: dict, work: Path) -> dict:
     """Phase 9: full-size gray stores, the native gather against numpy,
     training and predicting from the stores, on-device smoothing, a device
-    trace and the rehearsal CLI, each stage timed by ``StageTimer``.
-    Returns the launches of each path."""
+    trace and the rehearsal CLI, each stage a ``host_data.*`` span of the
+    tracer (``utils/profiling.py``). Returns the launches of each path."""
     launches: dict = {}
-    timer = StageTimer()
-    with environ(BAS_TPU_WORKDIR=str(work / "stores")):
-        with timer.stage("write_stores"):
-            games = store_games()
-        stores = sorted(ball.DOMAIN.soccernet_dir.rglob("*.gray"))
-        log({"phase": "store_write", "halves": len(stores), "frames_per_half": STORE_FRAMES,
-             "frame": [VIDEO_HEIGHT, WIDTH], "store_gb": sum(p.stat().st_size for p in stores) / 1e9,
-             "seconds": timer.totals["write_stores"]})
-        with timer.stage("gather"):
-            gather_readers(stores[0], card)
-        with timer.stage("store_train"):
-            trainer, batch = store_train(dev, games, launches)
-        with timer.stage("device_trace"):
-            traced_step(trainer, batch, work / "trace")
-        del trainer, batch
+    profiling.reset()
+    profiling.enable()
+    try:
+        with environ(BAS_TPU_WORKDIR=str(work / "stores")):
+            with profiling.span("host_data.write_stores"):
+                games = store_games()
+            stores = sorted(ball.DOMAIN.soccernet_dir.rglob("*.gray"))
+            log({"phase": "store_write", "halves": len(stores), "frames_per_half": STORE_FRAMES,
+                 "frame": [VIDEO_HEIGHT, WIDTH],
+                 "store_gb": sum(p.stat().st_size for p in stores) / 1e9,
+                 "seconds": profiling.records().named("host_data.write_stores")[0].ns / 1e9})
+            with profiling.span("host_data.gather"):
+                gather_readers(stores[0], card)
+            with profiling.span("host_data.store_train"):
+                trainer, batch = store_train(dev, games, launches)
+            with profiling.span("host_data.device_trace"):
+                traced_step(trainer, batch, work / "trace")
+            del trainer, batch
+            torch.cuda.empty_cache()
+            with profiling.span("host_data.store_predict"):
+                store_predict(dev, games[0], fps_main, launches)
+            with profiling.span("host_data.smoothing"):
+                smoothing(dev, card)
+            sources = [ball.DOMAIN.soccernet_dir / game for game in games]
         torch.cuda.empty_cache()
-        with timer.stage("store_predict"):
-            store_predict(dev, games[0], fps_main, launches)
-        with timer.stage("smoothing"):
-            smoothing(dev, card)
-        sources = [ball.DOMAIN.soccernet_dir / game for game in games]
-    torch.cuda.empty_cache()
-    with timer.stage("rehearsal"):
-        rehearsal_on_card(dev, work / "rehearsal", sources, launches)
-    log({"phase": "host_data_stages", "stages": timer.report().splitlines()})
+        with profiling.span("host_data.rehearsal"):
+            rehearsal_on_card(dev, work / "rehearsal", sources, launches)
+    finally:
+        profiling.disable()
+    log({"phase": "host_data_stages",
+         "stages": profiling.records().report("host_data.").splitlines()})
     return launches
 
 

@@ -22,7 +22,8 @@ from ball_action_spotting_torch.core.spotting import save_raw_predictions
 from ball_action_spotting_torch.data import HardSyntheticSource
 from ball_action_spotting_torch.data.gray_store import store_path_for_video, write_gray_store
 from ball_action_spotting_torch.domains import ball
-from ball_action_spotting_torch.utils.profiling import StageTimer, device_trace, synchronize
+from ball_action_spotting_torch.utils import profiling
+from ball_action_spotting_torch.utils.profiling import device_trace, synchronize
 from scripts import verify_data as jax_verify_data
 
 # --- HardSyntheticSource ------------------------------------------------------
@@ -84,18 +85,29 @@ def test_smooth_scores_batch_needs_cuda_or_cpu():
 # --- profiling ----------------------------------------------------------------
 
 def test_stage_timer_accumulates():
-    timer = StageTimer()
-    for _ in range(3):
-        with timer.stage("decode"):
+    """The tracer's per-name totals and report, which took ``StageTimer``'s
+    place."""
+    profiling.reset()
+    profiling.enable()
+    try:
+        for _ in range(3):
+            with profiling.span("stage.decode"):
+                pass
+        with profiling.span("stage.collate"):
             pass
-    with timer.stage("collate"):
-        pass
-    assert timer.counts["decode"] == 3 and timer.counts["collate"] == 1
-    report = timer.report()
-    assert "decode" in report and "ms/call" in report
-    assert report.splitlines()[0].split(":")[0] in ("decode", "collate")
-    timer.reset()
-    assert not timer.totals and not timer.counts
+        with profiling.span("other"):
+            pass
+    finally:
+        profiling.disable()
+    records = profiling.records()
+    totals = records.totals("stage.")
+    assert {name: n for name, (_, n) in totals.items()} == {"stage.decode": 3, "stage.collate": 1}
+    assert all(secs >= 0 for secs, _ in totals.values())
+    report = records.report("stage.")
+    assert "stage.decode" in report and "ms/call" in report and "other" not in report
+    assert report.splitlines()[0].split(":")[0] in ("stage.decode", "stage.collate")
+    profiling.reset()
+    assert not profiling.records().spans and not profiling.records().totals()
 
 
 def test_synchronize_tolerates_trees():
