@@ -16,12 +16,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ball_action_spotting_torch.models.effnetv2 import BatchNormAct, DropPath, PointwiseConv
+from ball_action_spotting_torch.models.effnetv2 import (
+    BatchNormAct,
+    DropPath,
+    PointwiseConv,
+    bn_skip,
+)
+from ball_action_spotting_torch.ops.dwconv3d import KERNEL as DW_KERNEL
 from ball_action_spotting_torch.ops.dwconv3d import (
     dwconv3d,
     dwconv3d_bands,
     dwconv3d_grouped_conv,
 )
+from ball_action_spotting_torch.ops.gem import KERNEL as GEM_KERNEL
 from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_bands
 from ball_action_spotting_torch.parallel.spatial import Bands, band_sum
 
@@ -36,6 +43,11 @@ class DepthwiseConv3d(nn.Module):
         super().__init__()
         self.use_kernel = use_kernel
         self.weight = nn.Parameter(torch.empty(features, 1, 3, 3, 3))
+
+    @property
+    def cuda_kernels(self) -> tuple:
+        """The hand-written kernels this module launches on a CUDA tensor."""
+        return (DW_KERNEL,) if self.use_kernel else ()
 
     def forward(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
         kernel = self.weight.to(x.dtype).permute(2, 3, 4, 1, 0)  # (3, 3, 3, 1, C)
@@ -94,8 +106,7 @@ class InvertedResidual3d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.bn2(self.conv_dw(self.bn1(self.conv_pw(x))))
-        out = self.bn3(self.conv_pwl(self.se(out)))
-        return self.drop_path(out) + x
+        return bn_skip(self.bn3, self.drop_path, self.conv_pwl(self.se(out)), x)
 
 
 class GeneralizedMeanPooling(nn.Module):
@@ -108,6 +119,8 @@ class GeneralizedMeanPooling(nn.Module):
         super().__init__()
         self.eps = eps
         self.p = nn.Parameter(torch.full((1,), p_init))
+
+    cuda_kernels = (GEM_KERNEL,)  # the hand-written kernels this module launches
 
     def forward(self, x: torch.Tensor | Bands) -> torch.Tensor:
         if isinstance(x, Bands):

@@ -39,8 +39,11 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ball_action_spotting_torch.ops.bias_act import ACTS, bias_act
+from ball_action_spotting_torch.ops.bias_act import KERNEL as BIAS_ACT_KERNEL
 from ball_action_spotting_torch.parallel.multihost import in_process_group
 from ball_action_spotting_torch.parallel.spatial import Bands, add_in_order, band_sum, row_op
+from ball_action_spotting_torch.utils.profiling import count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -354,35 +357,71 @@ class BatchNormAct(nn.Module):
         y = (xf - mean.to(dev).view(shape)) * mul.view(shape)
         return y + self.bias.to(dev).view(shape)
 
-    def forward(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
-        if isinstance(x, Bands):
-            return self._forward_bands(x)
-        shape = self._shape(x)
+    def forward(self, x: torch.Tensor | Bands,
+                residual: torch.Tensor | Bands | None = None) -> torch.Tensor | Bands:
+        """BN and activation of ``x``. The folded form runs its bias, its
+        activation and the add of ``residual`` (a block's skip, where given)
+        as one epilogue (``ops/bias_act.py``)."""
         if self.folded:
             if self.training:
                 raise ValueError("a folded BatchNormAct is inference-only")
-            x = x + self.bias.to(x.dtype).view(shape)
+            if isinstance(x, Bands):
+                return self._bias_act_bands(x, residual)
+            return self._epilogue(x, residual)
+        if residual is not None:
+            raise ValueError("only a folded BatchNormAct adds a residual")
+        if isinstance(x, Bands):
+            return self._forward_bands(x)
+        xf = x.float()
+        if self.training:
+            mean, var = self._batch_stats(xf)
         else:
-            xf = x.float()
-            if self.training:
-                mean, var = self._batch_stats(xf)
-            else:
-                mean, var = self.running_mean, self.running_var
-            x = self._normalize(xf, mean, var).to(x.dtype)
+            mean, var = self.running_mean, self.running_var
+        x = self._normalize(xf, mean, var).to(x.dtype)
         return x if self.act is None else self.act(x)
+
+    def _bias_act_bands(self, x: Bands, residual: Bands | None) -> Bands:
+        """The folded epilogue band by band, each band with its own of the
+        residual's bands."""
+        if residual is not None and (not isinstance(residual, Bands) or residual.cuts != x.cuts):
+            raise ValueError("bands add only to bands of the same cuts")
+        parts = [None] * len(x.parts) if residual is None else residual.parts
+        return x.map_with(parts, self._epilogue)
+
+    def _epilogue(self, x: torch.Tensor, residual: torch.Tensor | None) -> torch.Tensor:
+        """The folded form's bias, activation and ``residual`` add: one
+        ``bias_act`` where it computes the activation; else ``bias_act``
+        adds the bias alone and the activation and the add follow it,
+        counted as ``bias_act.act_apart``."""
+        if self.act in ACTS:
+            return bias_act(x, self.bias, self.act, residual, self.channels_last)
+        count("bias_act.act_apart")
+        y = self.act(bias_act(x, self.bias, None, None, self.channels_last))
+        return y if residual is None else y + residual
+
+    @property
+    def cuda_kernels(self) -> tuple:
+        """The hand-written kernels this module launches on a CUDA tensor."""
+        return (BIAS_ACT_KERNEL,) if self.folded else ()
 
     def _forward_bands(self, x: Bands) -> Bands:
         """Band by band, with the statistics of every band in training."""
-        if self.folded:
-            if self.training:
-                raise ValueError("a folded BatchNormAct is inference-only")
-            x = x.map(lambda t: t + self.bias.to(t.device, t.dtype).view(self._shape(t)))
-        else:
-            xf = x.map(lambda t: t.float())
-            mean, var = (self._band_stats(xf) if self.training
-                         else (self.running_mean, self.running_var))
-            x = xf.map(lambda t: self._normalize(t, mean, var).to(x.dtype))
+        xf = x.map(lambda t: t.float())
+        mean, var = (self._band_stats(xf) if self.training
+                     else (self.running_mean, self.running_var))
+        x = xf.map(lambda t: self._normalize(t, mean, var).to(x.dtype))
         return x if self.act is None else x.map(self.act)
+
+
+def bn_skip(bn: BatchNormAct, drop_path: DropPath, out: torch.Tensor | Bands,
+            skip: torch.Tensor | Bands | None) -> torch.Tensor | Bands:
+    """A block's last BN of ``out`` plus its ``skip`` (None: the block has
+    none): the folded BN adds the skip in its own epilogue; otherwise the
+    skip is added to the BN's output after ``drop_path``."""
+    if skip is not None and bn.folded:
+        return bn(out, residual=skip)
+    out = bn(out)
+    return out if skip is None else drop_path(out) + skip
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -527,8 +566,7 @@ class ConvBnAct(nn.Module):
         self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.bn1(self.conv(x))
-        return self.drop_path(out) + x if self.has_skip else out
+        return bn_skip(self.bn1, self.drop_path, self.conv(x), x if self.has_skip else None)
 
 
 class EdgeResidual(nn.Module):
@@ -549,8 +587,8 @@ class EdgeResidual(nn.Module):
         self.drop_path = DropPath(drop_path_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.bn2(self.conv_pwl(self.bn1(self.conv_exp(x))))
-        return self.drop_path(out) + x if self.has_skip else out
+        out = self.conv_pwl(self.bn1(self.conv_exp(x)))
+        return bn_skip(self.bn2, self.drop_path, out, x if self.has_skip else None)
 
 
 class InvertedResidual2d(nn.Module):
@@ -578,8 +616,8 @@ class InvertedResidual2d(nn.Module):
         out = self.bn2(self.conv_dw(self.bn1(self.conv_pw(x))))
         if self.se is not None:
             out = self.se(out)
-        out = self.bn3(self.conv_pwl(out))
-        return self.drop_path(out) + x if self.has_skip else out
+        return bn_skip(self.bn3, self.drop_path, self.conv_pwl(out),
+                       x if self.has_skip else None)
 
 
 class EfficientNetV2Features(nn.Module):

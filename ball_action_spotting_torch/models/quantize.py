@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ball_action_spotting_torch.models.effnetv2 import Conv2dSame, same_pad
+from ball_action_spotting_torch.ops import int8_conv
 from ball_action_spotting_torch.ops.int8_conv import int8_conv2d, quantize
 from ball_action_spotting_torch.parallel.spatial import Bands, band_max, row_op
 
@@ -92,6 +93,9 @@ class QuantConv(Conv2dSame):
         self._quantized_for: tuple | None = None  # the weight's address, version, dtype, device
         self._quantized_from: torch.Tensor | None = None  # that weight, so the address stays its
         self._quantized: dict = {}  # device -> (w_q, s_w)
+
+    # the hand-written kernels this module may launch (the route takes the shape)
+    cuda_kernels = (int8_conv.KERNEL, int8_conv.GEMM_KERNEL, int8_conv.CONV3X3_KERNEL)
 
     def quantized_weight(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
         """``weight_scale`` of the weight on ``device``: (int8 (O, k, k, I)

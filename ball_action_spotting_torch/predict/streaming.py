@@ -57,6 +57,7 @@ from ball_action_spotting_torch.models import build_model
 from ball_action_spotting_torch.models.effnetv2 import stem_weight_to_s2d
 from ball_action_spotting_torch.models.fold_bn import fold_bn_state_dict
 from ball_action_spotting_torch.models.quantize import run_shares
+from ball_action_spotting_torch.native import build_all
 from ball_action_spotting_torch.parallel.mesh import make_mesh, spatial_bands
 from ball_action_spotting_torch.parallel.multihost import process_slice
 from ball_action_spotting_torch.parallel.spatial import Bands, bands_of, cat_bands
@@ -114,7 +115,9 @@ class PredictorBase:
     ``False`` keeps the grouped ``conv3d`` there. ``s2d_stem`` runs the
     encoder's stem as the space-to-depth stem, on the same weights.
     ``conv_int8`` builds the encoder blocks' convs as int8 convs
-    (``models/quantize.py::QuantConv``, inference only)."""
+    (``models/quantize.py::QuantConv``, inference only). On a CUDA device
+    the kernels the model's modules launch (their ``cuda_kernels``) are
+    built up front, one compiler each, all at once (``native.build_all``)."""
 
     def __init__(
         self,
@@ -171,6 +174,9 @@ class PredictorBase:
                             conv2d_int8=opts["conv_int8"],
                             **{**nn_kwargs, "stem_space_to_depth": opts["s2d_stem"]})
         model.load_state_dict(state, strict=True)
+        if self.device.type == "cuda":  # the kernels the model's modules launch, at once
+            build_all(list(dict.fromkeys(k for m in model.modules()
+                                         for k in getattr(m, "cuda_kernels", ()))))
         return model.to(self.device).eval(), params
 
     def pad_frame(self, frame: np.ndarray) -> np.ndarray:

@@ -33,7 +33,10 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    inference head's and the train step's head's shapes in bf16, with its
    backward in float32 and bf16, and two runs bit-identical; the depthwise
    conv at the inference shapes in bf16; the warp resample at the train
-   step's H-pass and V-pass shapes in bf16 and float32. Then the edge
+   step's H-pass and V-pass shapes in bf16 and float32; the folded BN's
+   epilogue (``bias_act``) at ``BIAS_ACT_SHAPES`` (the stem's bias + SiLU,
+   the 3D head's bn1/bn2 and its bn3 with the skip) in bf16, bit for bit
+   the plain sequence, ``library_ms`` PyTorch's unfused passes. Then the edge
    shapes: ``DW_EDGE_CASES`` (T 1, 2, 5; ragged and whole row tiles; W 1
    and 96; C 6, 96, 576; float32, bf16, fp16; an x off a 16-byte
    boundary), ``DW_ROUTE_CASES`` (odd C, N 65536, strided and misaligned
@@ -106,7 +109,8 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    against the live frame-carry engine (its launches counted there, ms per
    chunk exported and live), and a small checkpoint sealed on the CPU by
    the export CLI's own route, which must hold the depthwise op, run on the
-   card against the CPU. The parallel paths take every visible card, or
+   card against the CPU; each sealed program must hold one ``bias_act``
+   node per folded BN. The parallel paths take every visible card, or
    the one card twice: data-parallel predict on an N×1 grid against one
    device, fold-parallel on a 1×N grid (3 folds padded to 4 on one card, 7
    padded to 8 on four) against the fused engine, each timed and traced
@@ -251,7 +255,8 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    GeM on the inference and on the training path, the depthwise conv, and
    the warp's H and V passes, each with its own launches and bound, and
    ``launches_by_path``: the recipe, serving, phase-7, -8, -9 and -10 paths
-   of the same kind, each of which must launch it; then GeM and the
+   of the same kind, each of which must launch it; the folded BN's
+   epilogue at ``BIAS_ACT_SHAPES`` with every inference path; then GeM and the
    depthwise conv at the serving and the multi-channel shapes, each with
    its paths; then GeM's band-partial launch and the depthwise conv at
    phase 11's band shapes, with the spatial paths, GeM's with the banded
@@ -351,6 +356,7 @@ from ball_action_spotting_torch.models.quantize import (
     weight_scale,
 )
 from ball_action_spotting_torch.ops import KERNELS
+from ball_action_spotting_torch.ops import bias_act as bias_act_ops
 from ball_action_spotting_torch.ops import dwconv3d as dw_ops
 from ball_action_spotting_torch.ops import gem as gem_ops
 from ball_action_spotting_torch.ops import int8_conv as int8_ops
@@ -361,6 +367,7 @@ from ball_action_spotting_torch.ops.augment import (
     apply_augment,
     sample_augment_params,
 )
+from ball_action_spotting_torch.ops.bias_act import bias_act, bias_act_reference
 from ball_action_spotting_torch.ops.dwconv3d import (
     dwconv3d,
     dwconv3d_grouped_conv,
@@ -448,6 +455,13 @@ PARAMS = {
     "frame_stack_size": 15,
     "frame_stack_step": 2,
     "frames_processor": ("pad_normalize", {"size": (WIDTH, HEIGHT)}),
+}
+# The main path's largest folded-BN epilogues in a chunk program (bf16, NHWC
+# or (N, T, H, W, C), TTA on): (shape, activation, with the block's skip)
+BIAS_ACT_SHAPES = {
+    "bias_act_stem": ((2 * CHUNK, 368, 640, 32), "silu", False),  # the encoder's stem
+    "bias_act_head": ((2 * CHUNK, 5, 23, 40, 576), "silu", False),  # the 3D head's bn1, bn2
+    "bias_act_head_skip": ((2 * CHUNK, 5, 23, 40, 192), "none", True),  # its bn3 and skip
 }
 # Stated tolerances.
 GEM_TOL = 1e-4         # × max|ref|: f32 sums in another order, MUFU log2/exp2 (~1e-6 rel.)
@@ -790,6 +804,47 @@ def check_gem(dev, shape: tuple, path: str, per_kernel: bool = False) -> dict:
         "gem_splits": splits,
     }
     log(row)
+    return row
+
+
+def check_bias_act(dev, shape: tuple, act: str, residual: bool) -> dict:
+    """The folded BN's epilogue (bias, ``act``, the skip where ``residual``)
+    at one of the main path's shapes in bf16, through the wrapper the model
+    calls, against the plain sequence on the same inputs: bit for bit.
+    ``library_ms`` times PyTorch's unfused passes, which are the plain
+    sequence itself (the bias add, SiLU, the skip add)."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = (4 * torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+    bias = torch.randn(shape[-1], generator=g, device=dev).to(torch.bfloat16)
+    r = (4 * torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16) if residual else None
+    fn = F.silu if act == "silu" else None
+    before = bias_act_ops.KERNEL.launches
+    out = bias_act(x, bias, fn, r)
+    ref = bias_act_reference(x, bias, r, act)
+    if bias_act_ops.KERNEL.launches != before + 1:
+        fail(f"bias_act ({shape}, {act}): the wrapper did not launch its kernel once")
+    if not torch.equal(out.view(torch.int16), ref.view(torch.int16)):
+        err = (out.float() - ref.float()).abs().max().item()
+        fail(f"bias_act kernel vs plain ({shape}, {act}, skip {residual}): not bit for bit, "
+             f"max|diff| {err}")
+    del out, ref
+    torch.cuda.empty_cache()
+    n = x.numel()
+    nbytes = n * 2 * (3 if residual else 2) + bias.numel() * 2
+    bound_ms, bound_by = bound(nbytes, n * ((5 if act == "silu" else 1) + residual))
+    plain_ms = median_ms(lambda: bias_act_reference(x, bias, r, act))
+    row = {
+        "name": "bias_act", "path": "inference", "shape": list(shape), "dtype": "bfloat16",
+        "act": act, "residual": residual, "max_abs_diff": 0.0, "bit_equal": True,
+        "kernel_ms": median_ms(lambda: bias_act(x, bias, fn, r)),
+        "direct_ms": median_ms(lambda: bias_act_ops.bias_act_cuda(x, bias, r, act)),
+        **kernel_device_ms(lambda: bias_act(x, bias, fn, r), "bias_act", bias_act_ops.KERNEL),
+        "plain_ms": plain_ms, "library_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    log(row)
+    del x, r
+    torch.cuda.empty_cache()
     return row
 
 
@@ -2163,7 +2218,8 @@ np.save(out_path, raw)
 targets = [str(node.target) for node in sealed.program.graph.nodes if node.op == "call_function"]
 print(json.dumps({"models_imported": "ball_action_spotting_torch.models" in sys.modules,
                   "op_nodes": {name: targets.count(f"bas_torch.{name}.default")
-                               for name in ("gem_pool", "dwconv3d", "warp_resample")},
+                               for name in ("gem_pool", "dwconv3d", "warp_resample",
+                                            "bias_act")},
                   "jax_imported": any(m.split(".")[0] in ("jax", "ball_action_spotting_tpu")
                                       for m in sys.modules),
                   "launches": launches, "seconds": seconds, "load_seconds": load_s,
@@ -2208,9 +2264,10 @@ def fused_phase(dev, folds: list, frames: np.ndarray, card: str, launches: dict)
     return raw, secs_fused
 
 
-def tiny_cpu_artifact(path: Path):
-    """A small model's checkpoint sealed by the export CLI on the CPU (the
-    route the CLI always seals; float32, chunk 8), and a 40-frame video."""
+def tiny_weights():
+    """A small model (``TINY_ARCH``, two 3D blocks) with seeded weights and
+    BN statistics calibrated on a 40-frame 64x96 video: (model, params,
+    video)."""
     EFFNETV2_ARCHS["efficientnetv2_test"] = TINY_ARCH
     kwargs = dict(model_name="efficientnetv2_test", num_classes=2, num_frames=6, stack_size=3,
                   index_2d_features=4, num_3d_blocks=2, num_3d_features=16,
@@ -2222,19 +2279,33 @@ def tiny_cpu_artifact(path: Path):
     calibrate_bn(model.eval(), torch.from_numpy(video[:6][None]).float() / 255.0)
     params = {"nn_module": ("multidim_stacker", kwargs), "frame_stack_size": 6,
               "frame_stack_step": 2, "frames_processor": ("pad_normalize", {"size": (96, 64)})}
+    return model, params, video
+
+
+def tiny_cpu_artifact(path: Path):
+    """``tiny_weights``' checkpoint sealed by the export CLI on the CPU (the
+    route the CLI always seals; float32, chunk 8, BN folded), its video,
+    and the count of BNs the CLI folds."""
+    model, params, video = tiny_weights()
     tree = state_dict_to_flax_tree(model.state_dict(), model)
     ckpt = path.with_suffix(".ckpt")
     save_checkpoint(ckpt, params, tree, tree)
     art = export_model.main(["--checkpoint", str(ckpt), "--output", str(path),
                              "--chunk_size", "8", "--dtype", "float32", "--device", "cpu"])
-    return art, video
+    return art, video, sum(isinstance(m, BatchNormAct) for m in model.modules())
 
 
 def op_nodes(program) -> dict:
     """The count of each ``bas_torch`` op's nodes in an exported program."""
     targets = [str(node.target) for node in program.graph.nodes if node.op == "call_function"]
     return {name: targets.count(f"bas_torch.{name}.default")
-            for name in ("gem_pool", "dwconv3d", "warp_resample")}
+            for name in ("gem_pool", "dwconv3d", "warp_resample", "bias_act")}
+
+
+def folded_bns(model) -> int:
+    """``model``'s folded BNs: a sealed chunk program holds one
+    ``bas_torch::bias_act`` node for each."""
+    return sum(isinstance(m, BatchNormAct) and m.folded for m in model.modules())
 
 
 def export_phase(dev, weights, frames: np.ndarray, card: str, launches: dict) -> None:
@@ -2260,20 +2331,27 @@ def export_phase(dev, weights, frames: np.ndarray, card: str, launches: dict) ->
         raw_sealed = np.load(tmp / "raw.npy")
         if probe["models_imported"] or probe["jax_imported"]:
             fail(f"the artifact's loader imported model code or JAX: {probe}")
-        if probe["op_nodes"] != {"gem_pool": 1, "dwconv3d": DW_PER_CHUNK, "warp_resample": 0}:
-            fail(f"the exported flagship program holds {probe['op_nodes']} custom-op nodes")
+        bns = folded_bns(live.model)
+        if probe["op_nodes"] != {"gem_pool": 1, "dwconv3d": DW_PER_CHUNK, "warp_resample": 0,
+                                 "bias_act": bns}:
+            fail(f"the exported flagship program holds {probe['op_nodes']} custom-op nodes, "
+                 f"expected {bns} bias_act nodes")
         launches["export"] = probe["launches"]
         expect_launches("export", probe["launches"], CHUNKS, CHUNKS * DW_PER_CHUNK)
+        if probe["launches"]["bias_act"] != CHUNKS * bns:
+            fail(f"the sealed program launched bias_act {probe['launches']['bias_act']} times, "
+                 f"expected {CHUNKS} × {bns}")
         diff = agree("export_vs_live_frame_carry", raw_sealed, raw_live, PRED_BF16_ATOL)
         new = torch.from_numpy(frames[:CHUNK]).to(dev)
         carry = torch.from_numpy(frames[:live.overlap]).to(dev)
         live_ms = chunk_ms(live.chunk_frames, new, carry)
 
-        art_cpu, video = tiny_cpu_artifact(tmp / "tiny_cpu.bastorx")
+        art_cpu, video, tiny_bns = tiny_cpu_artifact(tmp / "tiny_cpu.bastorx")
         on_cpu = ExportedChunkPredictor(art_cpu, device="cpu")
         on_card = ExportedChunkPredictor(art_cpu, device=dev)
         cpu_traced_nodes = op_nodes(on_card.program)
-        if cpu_traced_nodes != {"gem_pool": 1, "dwconv3d": 2, "warp_resample": 0}:
+        if cpu_traced_nodes != {"gem_pool": 1, "dwconv3d": 2, "warp_resample": 0,
+                                "bias_act": tiny_bns}:
             fail(f"the CLI's CPU-traced artifact holds {cpu_traced_nodes} custom-op nodes")
         idx_cpu, raw_cpu = on_cpu.predict_video(iter(enumerate(video)), len(video))
         idx_card, raw_card = counted("export_cpu_traced", launches, lambda: on_card.predict_video(
@@ -4527,6 +4605,7 @@ def int8_engines(dev, card: str, weights, frames: np.ndarray, launches: dict) ->
                    if nd.op == "call_function"]
         nodes["int8_conv2d"] = targets.count("bas_torch.int8_conv2d.default")
         if nodes != {"gem_pool": 1, "dwconv3d": DW_PER_CHUNK, "warp_resample": 0,
+                     "bias_act": folded_bns(one.model),
                      "int8_conv2d": INT8_K_CONVS + INT8_MM_CONVS}:
             fail(f"the exported int8 program holds {nodes} custom-op nodes")
         sealed.predict_video(iter(enumerate(frames[:CHUNK + 30])), CHUNK + 30)
@@ -4730,6 +4809,7 @@ def main() -> None:
         "gem_pool_inference": check_gem(dev, (2 * CHUNK * 5, 23, 40, 256), "inference"),
         "dwconv3d": check_dwconv(dev, 2),
         "gem_pool_train": check_gem(dev, (BATCH, 23, 40, 5 * 256), "train"),
+        **{name: check_bias_act(dev, *case) for name, case in BIAS_ACT_SHAPES.items()},
     }
     torch.cuda.empty_cache()
     warp_rows = {(axis, dtype): check_warp(dev, axis, dtype)
@@ -4843,6 +4923,10 @@ def main() -> None:
         "dwconv3d_multichan": ("dwconv3d", "ball_action_spotting_torch/csrc/dwconv3d.cu",
                                "ball_action_spotting_tpu/ops/pallas_dwconv3d.py:105",
                                {"multichan": family_launches["multichan"]}),
+        # no Pallas kernel: XLA fuses the folded BN's bias, SiLU and skip into the conv
+        **{name: ("bias_act", "ball_action_spotting_torch/csrc/bias_act.cu",
+                  "ball_action_spotting_tpu/models/effnetv2.py:202", inference_paths)
+           for name in BIAS_ACT_SHAPES},
     }
     sources.update(spatial_sources(sp_launches))
     sources.update(int8_sources(int8_launches))

@@ -130,7 +130,7 @@ def test_wrappers_validate_inputs_and_count_no_cpu_launch():
         kernel.launches = 0
     resample_last_axis(img, torch.ones(2), torch.zeros(2, 8))
     resample_columns(img, torch.ones(2), torch.zeros(2, 16))
-    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0, 0]
+    assert [k.launches for k in KERNELS] == [0] * len(KERNELS)
     with pytest.raises(ValueError):
         resample_last_axis(img, torch.ones(2), torch.zeros(2, 16))  # offsets per row
     with pytest.raises(ValueError):
