@@ -41,7 +41,8 @@ from ball_action_spotting_torch.models.effnetv2 import (
     EfficientNetV2Features,
     PointwiseConv,
 )
-from ball_action_spotting_torch.parallel.spatial import Bands
+from ball_action_spotting_torch.parallel.spatial import Bands, device_of
+from ball_action_spotting_torch.utils import profiling
 
 _ACTS: dict[str, Callable] = {
     "silu": F.silu,
@@ -162,15 +163,21 @@ class MultiDimStacker(nn.Module):
         return self._encode(x.to(self.dtype).permute(0, 3, 1, 2))
 
     def _blocks_3d(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
-        # (B, T', h, w, C) → per-stack projected (B·T', h, w, proj)
+        # (B, T', h, w, C) → the 3D blocks' output per stack, (B·T', h, w, C),
+        # in a ``head.blocks3d`` span timed on x's device; counts the stack
+        # maps (``head_stacks``)
         b, t, h, w, c = x.shape
         assert c == self.num_3d_features and t == self.num_stacks
-        for i in range(self.num_3d_blocks):
-            x = getattr(self, f"conv3d_encoder_{i}")(x)
+        profiling.count("head_stacks", b * t)
+        with profiling.span("head.blocks3d", device=device_of(x)):
+            for i in range(self.num_3d_blocks):
+                x = getattr(self, f"conv3d_encoder_{i}")(x)
         if isinstance(x, Bands):
-            x = x.map(lambda p: p.reshape(b * t, p.shape[2], w, c), axis=1)
-        else:
-            x = x.reshape(b * t, h, w, c)
+            return x.map(lambda p: p.reshape(b * t, p.shape[2], w, c), axis=1)
+        return x.reshape(b * t, h, w, c)
+
+    def _project(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
+        # per-stack (B·T', h, w, C) → (B·T', h, w, proj)
         return self.conv3d_projection_bn(self.conv3d_projection_conv(x))
 
     def forward_3d(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
@@ -179,10 +186,10 @@ class MultiDimStacker(nn.Module):
         b, t, h, w, _ = x.shape
         proj = self.num_3d_stack_proj
         if isinstance(x, Bands):
-            return self._blocks_3d(x).map(lambda p: p.reshape(
+            return self._project(self._blocks_3d(x)).map(lambda p: p.reshape(
                 b, t, p.shape[1], w, proj).permute(0, 2, 3, 1, 4).reshape(
                 b, p.shape[1], w, t * proj))
-        x = self._blocks_3d(x).reshape(b, t, h, w, self.num_3d_stack_proj)
+        x = self._project(self._blocks_3d(x)).reshape(b, t, h, w, self.num_3d_stack_proj)
         return x.permute(0, 2, 3, 1, 4).reshape(b, h, w, t * self.num_3d_stack_proj)
 
     def forward_head(self, x: torch.Tensor) -> torch.Tensor:
@@ -191,10 +198,13 @@ class MultiDimStacker(nn.Module):
     def forward_3d_head(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T', h, w, C) stack features → (B, num_classes) logits:
         ``forward_head(forward_3d(x))`` with GeM pooled per stack and the
-        pooled vectors flattened stack-major, the same channel order."""
+        pooled vectors flattened stack-major, the same channel order. The
+        projection, GeM and the classifier run in a ``head.pool`` span."""
         b, t = x.shape[:2]
-        x = self.global_pool(self._blocks_3d(x))  # (b·t, proj) float32
-        return self.classifier(self.dropout(x.reshape(b, t * self.num_3d_stack_proj)))
+        x = self._blocks_3d(x)
+        with profiling.span("head.pool", device=device_of(x)):
+            x = self.global_pool(self._project(x))  # (b·t, proj) float32
+            return self.classifier(self.dropout(x.reshape(b, t * self.num_3d_stack_proj)))
 
     def forward(self, x: torch.Tensor | Bands) -> torch.Tensor:
         feats = self.forward_2d(x)

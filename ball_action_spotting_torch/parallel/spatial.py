@@ -140,6 +140,11 @@ class Bands:
         return torch.cat([p.to(device) for p in self.parts], dim=self.axis)
 
 
+def device_of(x: torch.Tensor | Bands) -> torch.device:
+    """The device of a tensor, or of the first of its bands."""
+    return x.devices[0] if isinstance(x, Bands) else x.device
+
+
 def bands_of(x: torch.Tensor, devices: Sequence, cuts: Sequence[int], axis: int) -> Bands:
     """``x`` cut along ``axis`` at ``cuts`` (``spatial_bands``'), each band
     copied straight to its device."""

@@ -60,7 +60,7 @@ from ball_action_spotting_torch.models.quantize import run_shares
 from ball_action_spotting_torch.native import build_all
 from ball_action_spotting_torch.parallel.mesh import make_mesh, spatial_bands
 from ball_action_spotting_torch.parallel.multihost import process_slice
-from ball_action_spotting_torch.parallel.spatial import Bands, bands_of, cat_bands
+from ball_action_spotting_torch.parallel.spatial import Bands, bands_of, cat_bands, device_of
 from ball_action_spotting_torch.predict.host_loop import (  # noqa: F401  (re-exported)
     iter_source_frames,
     pad_frame,
@@ -68,11 +68,6 @@ from ball_action_spotting_torch.predict.host_loop import (  # noqa: F401  (re-ex
 )
 from ball_action_spotting_torch.train.checkpoint import resolve_pretrain_variables
 from ball_action_spotting_torch.utils import profiling
-
-
-def _device_of(x: torch.Tensor | Bands) -> torch.device:
-    """The device of a tensor, or of the first of its bands."""
-    return x.devices[0] if isinstance(x, Bands) else x.device
 
 
 def _batched(seq, size):
@@ -373,7 +368,7 @@ class ChunkedVideoPredictor(PredictorBase):
         def prep(t):
             return self.normalize_stacks(self._stacks(t, count))
 
-        with profiling.span("predict.encode", device=_device_of(frames)):
+        with profiling.span("predict.encode", device=device_of(frames)):
             x = frames.map(prep) if isinstance(frames, Bands) else prep(frames)
             return self.encode_2d(x, model)
 
@@ -382,7 +377,7 @@ class ChunkedVideoPredictor(PredictorBase):
         sigmoid predictions; window p's k-th stack is feats[p + k·span].
         Bands take their windows band by band. A ``predict.head`` span,
         timed on the features' device."""
-        with profiling.span("predict.head", device=_device_of(feats)):
+        with profiling.span("predict.head", device=device_of(feats)):
             n = feats.shape[1] - self._feat_tail
             flat = feats.map(self._windows) if isinstance(feats, Bands) else self._windows(feats)
             logits = (model or self.model).forward_3d_head(flat)

@@ -29,6 +29,7 @@ CHUNK = 8
 FRAMES = 75
 LOOP = {"predict.pad", "predict.bootstrap", "predict.upload", "predict.dispatch",
         "predict.readback"}
+HEAD = ("head.blocks3d", "head.pool")
 ENGINES = {
     "feature_carry": dict(carry_features=True),
     "frame_carry": dict(carry_features=False),
@@ -102,7 +103,7 @@ def profiled(predictor, frames, runs=2):
     t0 = prof.profiler.kineto_results.trace_start_ns()
     ranges: dict[str, list] = {}
     for e in prof.events():
-        if e.name.startswith("predict."):
+        if e.name.startswith(("predict.", "head.")):
             ranges.setdefault(e.name, []).append(t0 + e.time_range.start * 1e3)
     return profiling.records(), ranges
 
@@ -146,17 +147,20 @@ def test_spans_nest_with_one_request_per_call_on_the_profiler_clock(weights, tra
             assert parent == "predict.segment", s
         elif s.name == "predict.head":
             assert parent == "predict.dispatch", s
+        elif s.name.startswith("head."):  # the 3D blocks, and the projection to logits
+            assert s.name in HEAD and parent == "predict.head", s
         else:
             assert s.name == "predict.encode" and parent in (
                 "predict.dispatch", "predict.bootstrap"), (s, parent)
-        assert s.device_ms is None or s.name in ("predict.encode", "predict.head")
+        assert s.device_ms is None or s.name in ("predict.encode", "predict.head", *HEAD)
     shares = len(predictor.shares)  # spatial: one data row
     chunks = rec.counter("chunks")
     assert len(bootstrap_encodes) == (2 if predictor.carry_features else 0)
     assert len(rec.named("predict.encode")) == len(bootstrap_encodes) + chunks * shares
     assert len(rec.named("predict.head")) == chunks * shares
+    assert all(len(rec.named(name)) == chunks * shares for name in HEAD)
     assert all(s.device_ms == pytest.approx(s.ns / 1e6)
-               for s in rec.spans if s.name in ("predict.encode", "predict.head"))
+               for s in rec.spans if s.name in ("predict.encode", "predict.head", *HEAD))
 
 
 @pytest.mark.parametrize("kind", ["feature_carry", "frame_carry"])
@@ -178,10 +182,11 @@ def test_counters_of_a_tiny_segment_equal_hand_counts(weights, tracer, kind):
     assert counters.pop("bias_act.plain") == (
         encoder_bns * len(rec.named("predict.encode"))
         + (len(bns) - encoder_bns) * len(rec.named("predict.head")))
+    # the 3D blocks take 48 windows × 2 views × 5 stacks
     assert counters == {
         "frames_in": 75, "frames_skipped": 1, "frames_repeated": 2, "chunks": 6,
         "windows_computed": 48, "predictions_kept": 45,
-        "bytes_uploaded": (28 + 48) * 64 * 96}
+        "bytes_uploaded": (28 + 48) * 64 * 96, "head_stacks": 48 * 2 * 5}
 
 
 def test_counts_belong_to_their_span_and_request(weights, tracer):
@@ -193,7 +198,10 @@ def test_counts_belong_to_their_span_and_request(weights, tracer):
     by_id = {s.id: s for s in rec.spans}
     for name, _, span_id in rec.counts:
         if name.startswith("bias_act."):  # a folded BN's epilogue, inside a model call
-            assert by_id[span_id].name in ("predict.encode", "predict.head")
+            assert by_id[span_id].name in ("predict.encode", *HEAD)
+            continue
+        if name == "head_stacks":  # the 3D head's stack maps, as it starts
+            assert by_id[span_id].name == "predict.head"
             continue
         assert by_id[span_id].name == ("predict.pad" if name.startswith("frames_")
                                        and name != "frames_skipped" else "predict.segment")
@@ -236,6 +244,7 @@ def test_device_trace_exports_the_block_spans(weights, tmp_path, tracer):
     assert len(block["spans"]) == len(tracer.records().spans) - before
     assert block["spans"][0]["name"] == "predict.segment"
     assert block["counters"]["predictions_kept"] == 45
+    assert block["counters"]["head_stacks"] == 48 * 2 * 5  # windows × views × stacks
     events = json.loads(path.read_text())["traceEvents"]
     assert any(e.get("name") == "predict.dispatch" for e in events)
 
