@@ -30,6 +30,8 @@ from ball_action_spotting_torch.ops.dwconv3d import (
 )
 from ball_action_spotting_torch.ops.gem import KERNEL as GEM_KERNEL
 from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_bands
+from ball_action_spotting_torch.ops.se_scale import KERNEL as SE_SCALE_KERNEL
+from ball_action_spotting_torch.ops.se_scale import se_scale
 from ball_action_spotting_torch.parallel.spatial import Bands, band_sum
 
 
@@ -69,13 +71,19 @@ class SqueezeExcite3d(nn.Module):
         self.conv_reduce = PointwiseConv(channels, rd, ndim=3, bias=True)
         self.conv_expand = PointwiseConv(rd, channels, ndim=3, bias=True)
 
+    cuda_kernels = (SE_SCALE_KERNEL,)  # the hand-written kernels this module launches
+
     def forward(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
+        """``x`` times the gate, the sigmoid of the excite convs over its
+        mean, in one pass (``ops/se_scale.py``)."""
         if isinstance(x, Bands):  # the mean over every band's rows
             _, t, h, w, _ = x.shape
-            return x.map_with(band_sum(x, (1, 2, 3)), lambda part, total: part * torch.sigmoid(
-                self._excite((total / (t * h * w)).to(part.dtype)[:, None, None, None])))
+            return x.map_with(band_sum(x, (1, 2, 3)), lambda part, total: se_scale(
+                part, torch.sigmoid(self._excite(
+                    (total / (t * h * w)).to(part.dtype)[:, None, None, None])),
+                channels_last=True))
         se = x.mean(dim=(1, 2, 3), keepdim=True)
-        return x * torch.sigmoid(self._excite(se))
+        return se_scale(x, torch.sigmoid(self._excite(se)), channels_last=True)
 
     def _excite(self, se: torch.Tensor) -> torch.Tensor:
         return self.conv_expand(self.act(self.conv_reduce(se)))

@@ -41,6 +41,8 @@ from torch import nn
 
 from ball_action_spotting_torch.ops.bias_act import ACTS, bias_act
 from ball_action_spotting_torch.ops.bias_act import KERNEL as BIAS_ACT_KERNEL
+from ball_action_spotting_torch.ops.se_scale import KERNEL as SE_SCALE_KERNEL
+from ball_action_spotting_torch.ops.se_scale import se_scale
 from ball_action_spotting_torch.parallel.multihost import in_process_group
 from ball_action_spotting_torch.parallel.spatial import Bands, add_in_order, band_sum, row_op
 from ball_action_spotting_torch.utils.profiling import count
@@ -538,13 +540,17 @@ class SqueezeExcite2d(nn.Module):
         self.conv_reduce = nn.Conv2d(channels, rd_channels, 1, bias=True)
         self.conv_expand = nn.Conv2d(rd_channels, channels, 1, bias=True)
 
+    cuda_kernels = (SE_SCALE_KERNEL,)  # the hand-written kernels this module launches
+
     def forward(self, x: torch.Tensor | Bands) -> torch.Tensor | Bands:
+        """``x`` times the gate, the sigmoid of the excite convs over its
+        mean, in one pass (``ops/se_scale.py``)."""
         if isinstance(x, Bands):  # the mean over every band's rows
             n = x.height * x.shape[3]
-            return x.map_with(band_sum(x, (2, 3)), lambda t, total: t * torch.sigmoid(
-                self._excite((total / n).to(t.dtype)[:, :, None, None])))
+            return x.map_with(band_sum(x, (2, 3)), lambda t, total: se_scale(t, torch.sigmoid(
+                self._excite((total / n).to(t.dtype)[:, :, None, None]))))
         se = x.mean(dim=(2, 3), keepdim=True)
-        return x * torch.sigmoid(self._excite(se))
+        return se_scale(x, torch.sigmoid(self._excite(se)))
 
     def _excite(self, se: torch.Tensor) -> torch.Tensor:
         dev, dt = se.device, se.dtype

@@ -36,7 +36,10 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    step's H-pass and V-pass shapes in bf16 and float32; the folded BN's
    epilogue (``bias_act``) at ``BIAS_ACT_SHAPES`` (the stem's bias + SiLU,
    the 3D head's bn1/bn2 and its bn3 with the skip) in bf16, bit for bit
-   the plain sequence, ``library_ms`` PyTorch's unfused passes. Then the edge
+   the plain sequence, ``library_ms`` PyTorch's unfused passes; the SE gate
+   multiply (``se_scale``) at ``SE_SCALE_SHAPES`` (the encoder's stride-16
+   and stride-32 maps, the 3D head's at 15 and 33 frames) in bf16, bit for
+   bit ATen's multiply, ``library_ms`` ATen's broadcast multiply. Then the edge
    shapes: ``DW_EDGE_CASES`` (T 1, 2, 5; ragged and whole row tiles; W 1
    and 96; C 6, 96, 576; float32, bf16, fp16; an x off a 16-byte
    boundary), ``DW_ROUTE_CASES`` (odd C, N 65536, strided and misaligned
@@ -256,7 +259,8 @@ Phases, in order (any failure exits nonzero; each prints its seconds):
    the warp's H and V passes, each with its own launches and bound, and
    ``launches_by_path``: the recipe, serving, phase-7, -8, -9 and -10 paths
    of the same kind, each of which must launch it; the folded BN's
-   epilogue at ``BIAS_ACT_SHAPES`` with every inference path; then GeM and the
+   epilogue at ``BIAS_ACT_SHAPES`` and the SE gate multiply at
+   ``SE_SCALE_SHAPES``, each with every inference path; then GeM and the
    depthwise conv at the serving and the multi-channel shapes, each with
    its paths; then GeM's band-partial launch and the depthwise conv at
    phase 11's band shapes, with the spatial paths, GeM's with the banded
@@ -360,6 +364,7 @@ from ball_action_spotting_torch.ops import bias_act as bias_act_ops
 from ball_action_spotting_torch.ops import dwconv3d as dw_ops
 from ball_action_spotting_torch.ops import gem as gem_ops
 from ball_action_spotting_torch.ops import int8_conv as int8_ops
+from ball_action_spotting_torch.ops import se_scale as se_scale_ops
 from ball_action_spotting_torch.ops import warp as warp_ops
 from ball_action_spotting_torch.native import build_all
 from ball_action_spotting_torch.ops.augment import (
@@ -368,6 +373,7 @@ from ball_action_spotting_torch.ops.augment import (
     sample_augment_params,
 )
 from ball_action_spotting_torch.ops.bias_act import bias_act, bias_act_reference
+from ball_action_spotting_torch.ops.se_scale import se_scale, se_scale_reference
 from ball_action_spotting_torch.ops.dwconv3d import (
     dwconv3d,
     dwconv3d_grouped_conv,
@@ -463,6 +469,18 @@ BIAS_ACT_SHAPES = {
     "bias_act_head": ((2 * CHUNK, 5, 23, 40, 576), "silu", False),  # the 3D head's bn1, bn2
     "bias_act_head_skip": ((2 * CHUNK, 5, 23, 40, 192), "none", True),  # its bn3 and skip
 }
+# The SE gate multiplies of a chunk program (bf16, TTA on), channels last:
+# the encoder's largest at strides 16 and 32 (NCHW maps in channels-last
+# memory) and the 3D head's at 15 and 33 frames
+SE_SCALE_SHAPES = {
+    "se_scale_s16": (2 * CHUNK, 46, 80, 672),
+    "se_scale_s32": (2 * CHUNK, 23, 40, 1152),
+    "se_scale_head": (2 * CHUNK, 5, 23, 40, 576),
+    "se_scale_head_f33": (2 * CHUNK, 11, 23, 40, 576),
+}
+# ... and the stride-16 one of the space-to-depth stem's encoder, whose maps
+# stay NCHW in contiguous memory: a plane per channel
+SE_SCALE_PLANES_SHAPE = (2 * CHUNK, 46, 80, 672)
 # Stated tolerances.
 GEM_TOL = 1e-4         # × max|ref|: f32 sums in another order, MUFU log2/exp2 (~1e-6 rel.)
 GEM_GRAD_RTOL = 1e-3   # × max|ref|: closed-form backward vs autograd of the plain version
@@ -844,6 +862,54 @@ def check_bias_act(dev, shape: tuple, act: str, residual: bool) -> dict:
     }
     log(row)
     del x, r
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_se_scale(dev, shape: tuple, planes: bool = False) -> dict:
+    """The SE gate multiply at one of the main path's shapes (channels
+    last) in bf16, through the wrapper the SE modules call, against the
+    plain ``x * gate`` on the same inputs: bit for bit. The encoder's maps
+    are NCHW in channels-last memory, or in contiguous memory where
+    ``planes``, the head's (N, T, H, W, C); ``library_ms`` times ATen's
+    broadcast multiply as the modules ran it before the kernel."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = (4 * torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+    gate = torch.rand(shape[0], shape[-1], generator=g, device=dev).to(torch.bfloat16)
+    if planes:
+        x = x.movedim(-1, 1).contiguous().movedim(1, -1)
+    channels_last = len(shape) == 5
+    if channels_last:
+        xm, gm = x, gate[:, None, None, None, :]
+    else:
+        xm, gm = x.permute(0, 3, 1, 2), gate[:, :, None, None]  # NCHW
+    se_scale_ops.KERNEL.reset_counts()
+    out = se_scale(xm, gm, channels_last)
+    ref = xm * gm
+    if (se_scale_ops.KERNEL.launches, path_launches()["se_scale_planes"]) != (1, int(planes)):
+        fail(f"se_scale ({shape}, planes {planes}): the wrapper did not launch its kernel "
+             f"once on {'planes' if planes else 'channels innermost'}")
+    if out.stride() != ref.stride() or not torch.equal(out.view(torch.int16),
+                                                       ref.view(torch.int16)):
+        err = (out.float() - ref.float()).abs().max().item()
+        fail(f"se_scale kernel vs plain ({shape}): not bit for bit, max|diff| {err}")
+    del out, ref
+    torch.cuda.empty_cache()
+    bound_ms, bound_by = bound(x.numel() * 2 * 2 + gate.numel() * 2, x.numel())
+    call = lambda: se_scale(xm, gm, channels_last)  # noqa: E731
+    row = {
+        "name": "se_scale", "path": "inference", "shape": list(shape), "dtype": "bfloat16",
+        "planes": planes,
+        "max_abs_diff": 0.0, "bit_equal": True,
+        "kernel_ms": median_ms(call),
+        "direct_ms": median_ms(lambda: se_scale_ops.se_scale_cuda(x, gate)),
+        **kernel_device_ms(call, "se_scale", se_scale_ops.KERNEL),
+        "plain_ms": median_ms(lambda: se_scale_reference(x, gate)),
+        "library_ms": median_ms(lambda: xm * gm),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    log(row)
+    del x, xm
     torch.cuda.empty_cache()
     return row
 
@@ -1552,11 +1618,12 @@ def training(dev, card: str, keep_dir: Path) -> dict:
 
 def path_launches() -> dict:
     """The kernels' counts since the last ``reset_counts``, the warp's by
-    pass and GeM's band-partial launches apart."""
+    pass, GeM's band-partial launches and the SE scale's on planes apart."""
     return {**{k.name: k.launches for k in KERNELS},
             "warp_H": warp_ops.KERNEL.launches_by.get("H", 0),
             "warp_V": warp_ops.KERNEL.launches_by.get("V", 0),
-            "gem_partial": gem_ops.KERNEL.launches_by.get(gem_ops.PARTIAL, 0)}
+            "gem_partial": gem_ops.KERNEL.launches_by.get(gem_ops.PARTIAL, 0),
+            "se_scale_planes": se_scale_ops.KERNEL.launches_by.get(se_scale_ops.PLANES, 0)}
 
 
 def counted(name: str, launches: dict, fn):
@@ -4810,6 +4877,8 @@ def main() -> None:
         "dwconv3d": check_dwconv(dev, 2),
         "gem_pool_train": check_gem(dev, (BATCH, 23, 40, 5 * 256), "train"),
         **{name: check_bias_act(dev, *case) for name, case in BIAS_ACT_SHAPES.items()},
+        **{name: check_se_scale(dev, shape) for name, shape in SE_SCALE_SHAPES.items()},
+        "se_scale_s16_planes": check_se_scale(dev, SE_SCALE_PLANES_SHAPE, planes=True),
     }
     torch.cuda.empty_cache()
     warp_rows = {(axis, dtype): check_warp(dev, axis, dtype)
@@ -4895,6 +4964,11 @@ def main() -> None:
                          ("store_train", "rehearsal_stage1_train", "rehearsal_stage2_train",
                           "rehearsal_stage3_train", "rehearsal_stage4_train")},
                       "pp_step": mp_launches["pp_step"], "pp_train": mp_launches["pp_train"]}
+    se_paths = {**inference_paths, "multichan": family_launches["multichan"],
+                **{k: v for k, v in sp_launches.items() if k.startswith("sp_")},
+                **{k: v for k, v in int8_launches.items()
+                   if k.startswith("int8_") and k != "int8_edges"},
+                **training_paths}
     sources = {
         "gem_pool_inference": ("gem", "ball_action_spotting_torch/csrc/gem.cu",
                                "ball_action_spotting_tpu/ops/pallas_gem.py:64", inference_paths),
@@ -4927,6 +5001,15 @@ def main() -> None:
         **{name: ("bias_act", "ball_action_spotting_torch/csrc/bias_act.cu",
                   "ball_action_spotting_tpu/models/effnetv2.py:202", inference_paths)
            for name in BIAS_ACT_SHAPES},
+        # no Pallas kernel: XLA fuses the SE scale into its neighbours; every
+        # path through an SE module launches it, training's too, and the
+        # space-to-depth stem's on planes
+        **{name: ("se_scale", "ball_action_spotting_torch/csrc/se_scale.cu",
+                  "ball_action_spotting_tpu/models/effnetv2.py:280", se_paths)
+           for name in SE_SCALE_SHAPES},
+        "se_scale_s16_planes": ("se_scale_planes", "ball_action_spotting_torch/csrc/se_scale.cu",
+                                "ball_action_spotting_tpu/models/effnetv2.py:280",
+                                {"s2d_predict": family_launches["s2d_predict"]}),
     }
     sources.update(spatial_sources(sp_launches))
     sources.update(int8_sources(int8_launches))

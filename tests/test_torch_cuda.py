@@ -28,6 +28,7 @@ from ball_action_spotting_torch.ops.bias_act import bias_act, bias_act_reference
 from ball_action_spotting_torch.ops.dwconv3d import KERNEL as DW_KERNEL
 from ball_action_spotting_torch.ops.dwconv3d import dwconv3d, dwconv3d_reference
 from ball_action_spotting_torch.ops.gem import KERNEL as GEM_KERNEL
+from ball_action_spotting_torch.ops.se_scale import KERNEL as SE_SCALE_KERNEL
 from ball_action_spotting_torch.ops.gem import gem_pool, gem_pool_reference
 from ball_action_spotting_torch.ops.int8_conv import CONV3X3_KERNEL as INT8_CONV3X3_KERNEL
 from ball_action_spotting_torch.ops.int8_conv import GEMM_KERNEL as INT8_GEMM_KERNEL
@@ -224,6 +225,8 @@ def test_custom_ops_launch_the_kernels(cuda):
          (*int8_inputs(cuda, (2, 9, 11, 16, 24, 1, 1), 2)[:4], 1, 0, 0, 0, 0, torch.bfloat16)),
         (BIAS_ACT_KERNEL, torch.ops.bas_torch.bias_act,
          (x5, torch.rand(8, generator=g, device=cuda), torch.rand_like(x5), "silu")),
+        (SE_SCALE_KERNEL, torch.ops.bas_torch.se_scale,
+         (x5, torch.rand(1, 8, generator=g, device=cuda))),
     ]
     for kernel, op, args in calls:
         kernel.reset_counts()

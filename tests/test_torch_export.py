@@ -30,7 +30,8 @@ from ball_action_spotting_tpu.predict.streaming import (
 )
 from ball_action_spotting_torch.cli.export_model import main as export_cli
 from ball_action_spotting_torch.data.video import SyntheticSource
-from ball_action_spotting_torch.models.effnetv2 import BatchNormAct
+from ball_action_spotting_torch.models.blocks3d import SqueezeExcite3d
+from ball_action_spotting_torch.models.effnetv2 import BatchNormAct, SqueezeExcite2d
 from ball_action_spotting_torch.parallel.mesh import make_mesh
 from ball_action_spotting_torch.predict.export import (
     ExportedChunkPredictor,
@@ -168,9 +169,10 @@ def test_exported_graph_holds_the_custom_ops(ckpt_path, cli_artifact, tmp_path):
     """The CLI's defaults seal the depthwise kernel's route whatever the
     device it traces on: a program traced on the CPU calls
     ``bas_torch::gem_pool`` once, ``bas_torch::dwconv3d`` once per 3D
-    block and ``bas_torch::bias_act`` once per folded BN, so that on the
-    card it launches the three kernels. A predictor on the grouped conv's
-    route is refused."""
+    block, ``bas_torch::bias_act`` once per folded BN and
+    ``bas_torch::se_scale`` once per SE module, so that on the card it
+    launches the four kernels. A predictor on the grouped conv's route is
+    refused."""
     sealed = ExportedChunkPredictor(cli_artifact, device="cpu")
     targets = [str(n.target) for n in sealed.program.graph.nodes if n.op == "call_function"]
     assert targets.count("bas_torch.gem_pool.default") == 1
@@ -178,6 +180,8 @@ def test_exported_graph_holds_the_custom_ops(ckpt_path, cli_artifact, tmp_path):
     assert targets.count("bas_torch.dwconv3d.default") == default.model.num_3d_blocks
     assert targets.count("bas_torch.bias_act.default") == sum(
         isinstance(m, BatchNormAct) and m.folded for m in default.model.modules())
+    assert targets.count("bas_torch.se_scale.default") == sum(
+        isinstance(m, (SqueezeExcite2d, SqueezeExcite3d)) for m in default.model.modules()) > 0
     with pytest.raises(ValueError, match="dw3d_use_kernel=True"):
         export_chunked_predictor(default, tmp_path / "d.bastorx")
     _, raw_k = sealed.predict_video(frames(), FRAME_COUNT)

@@ -21,6 +21,7 @@ from ball_action_spotting_tpu.ops.pallas_dwconv3d import (
 from ball_action_spotting_tpu.ops.pallas_gem import gem_pool as jax_gem_pool
 from ball_action_spotting_torch.ops import KERNELS
 from ball_action_spotting_torch.ops.bias_act import bias_act
+from ball_action_spotting_torch.ops.se_scale import se_scale
 from ball_action_spotting_torch.ops.dwconv3d import (
     dwconv3d,
     dwconv3d_cuda,
@@ -139,9 +140,10 @@ def test_launch_counters_stay_zero_on_cpu():
                     (k // 2,) * 4, torch.float32)
     bias_act(torch.rand(1, 8, 4, 16), torch.rand(8), F.silu, torch.rand(1, 8, 4, 16),
              channels_last=False)
+    se_scale(torch.rand(1, 8, 4, 16), torch.rand(1, 8, 1, 1))
     assert [k.name for k in KERNELS] == ["gem", "dwconv3d", "warp", "int8_conv", "int8_gemm",
-                                         "int8_conv3x3", "bias_act"]
-    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0, 0, 0]
+                                         "int8_conv3x3", "bias_act", "se_scale"]
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0, 0, 0, 0]
 
 
 # csrc/dwconv3d.cu stages three rows of 3 slots × W × 32 channel pairs in at
@@ -205,5 +207,5 @@ def test_cpu_wrappers_count_no_launch(case):
     else:
         img = torch.rand(2, 8, 3, generator=g).transpose(1, 2)
         assert resample_columns(img, torch.ones(2), torch.zeros(2, 8)).shape == (2, 3, 8)
-    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0, 0, 0]
+    assert [k.launches for k in KERNELS] == [0, 0, 0, 0, 0, 0, 0, 0]
     assert all(not k.launches_by for k in KERNELS)

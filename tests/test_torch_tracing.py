@@ -14,7 +14,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from ball_action_spotting_torch.models import build_model
-from ball_action_spotting_torch.models.effnetv2 import BatchNormAct
+from ball_action_spotting_torch.models.blocks3d import SqueezeExcite3d
+from ball_action_spotting_torch.models.effnetv2 import BatchNormAct, SqueezeExcite2d
 from ball_action_spotting_torch.parallel.mesh import make_mesh
 from ball_action_spotting_torch.predict.streaming import ChunkedVideoPredictor
 from ball_action_spotting_torch.utils import profiling
@@ -182,6 +183,13 @@ def test_counters_of_a_tiny_segment_equal_hand_counts(weights, tracer, kind):
     assert counters.pop("bias_act.plain") == (
         encoder_bns * len(rec.named("predict.encode"))
         + (len(bns) - encoder_bns) * len(rec.named("predict.head")))
+    # and every SE gate multiply, once a call
+    encoder_ses = sum(isinstance(m, SqueezeExcite2d)
+                      for m in predictor.model.conv2d_encoder.modules())
+    head_ses = sum(isinstance(m, SqueezeExcite3d) for m in predictor.model.modules())
+    assert encoder_ses > 0 and head_ses > 0
+    assert counters.pop("se_scale.plain") == (encoder_ses * len(rec.named("predict.encode"))
+                                              + head_ses * len(rec.named("predict.head")))
     # the 3D blocks take 48 windows × 2 views × 5 stacks
     assert counters == {
         "frames_in": 75, "frames_skipped": 1, "frames_repeated": 2, "chunks": 6,
@@ -197,7 +205,8 @@ def test_counts_belong_to_their_span_and_request(weights, tracer):
     rec = tracer.records()
     by_id = {s.id: s for s in rec.spans}
     for name, _, span_id in rec.counts:
-        if name.startswith("bias_act."):  # a folded BN's epilogue, inside a model call
+        # a folded BN's epilogue or an SE scale, inside a model call
+        if name.startswith(("bias_act.", "se_scale.")):
             assert by_id[span_id].name in ("predict.encode", *HEAD)
             continue
         if name == "head_stacks":  # the 3D head's stack maps, as it starts
